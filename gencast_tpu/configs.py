@@ -11,14 +11,16 @@ import dataclasses
 import os
 from typing import Optional, Tuple
 
-import flax.nnx as nnx
+import jax
 import numpy as np
 
 from gencast_tpu.data import registry
 from gencast_tpu.graph import compiler
 from gencast_tpu.models.denoiser import DenoiserConfig
 from gencast_tpu.models.gencast import GenCast, NoiseConfig, SamplerConfig
+from gencast_tpu.nn import nnx
 from gencast_tpu.nn.transformer import TransformerConfig
+from gencast_tpu.ops import sparse_attention
 
 DEFAULT_CACHE_DIR = os.path.join(
     os.environ.get('GENCAST_TPU_CACHE', os.path.expanduser('~/.cache')),
@@ -36,55 +38,44 @@ class ModelSpec:
   num_layers: int
   num_heads: int
   attention_k_hop: int
-  attention_type: str = 'triblock'
+  # 'auto' (see attention_type_for), or one of TransformerConfig's
+  # backends: 'triblock', 'dense', 'pallas'.
+  attention_type: str = 'auto'
   ffw_hidden: int = 2048  # SparseTransformerConfig default (denoiser.py:97)
   hidden_layers: int = 1
   radius_query_fraction_edge_length: float = 0.6
   stochastic_churn_rate: float = 0.0
   num_noise_levels: int = 20
   # Storage dtype of the spherical-harmonic noise basis ('float32' or
-  # 'bfloat16'); synthesis accumulates in f32 either way.
+  # 'bfloat16'); synthesis accumulates in f32 either way. bfloat16 halves
+  # the basis, the largest static buffer at 0.25 degrees.
   noise_basis_dtype: str = 'float32'
   edge_chunk_size: Optional[int] = None
-  # Remat transformer blocks in the backward pass: measured ~25% faster
-  # training at nano scale (the bwd is dominated by HBM traffic for saved
-  # attention residuals; recompute is cheaper) and lower activation memory.
+  # Remat transformer blocks in the backward pass: the backward recomputes
+  # each block instead of keeping its activations.
   use_gradient_checkpointing: bool = True
   # 'full' or 'save_attention' (see nn.transformer.TransformerConfig):
-  # 'save_attention' keeps the pallas kernel's fused-VJP residuals and
+  # 'save_attention' keeps the pallas kernel's custom-VJP residuals and
   # recomputes only LN/FiLM/FFW in the backward.
   remat_policy: str = 'full'
-  # Scatter-free GNN aggregation plans (DenoiserConfig.use_agg_plans):
-  # profiled win at 1 degree+; pointless at nano edge counts.
-  use_agg_plans: bool = False
   # lax.scan unroll factor for the transformer layer stack (see
   # TransformerConfig.scan_unroll); >1 trades compile time for cross-layer
-  # fusion. A/B'd on the real chip via tools/ab_scan_unroll.py.
+  # fusion.
   scan_unroll: int = 1
-  # Tile size for the block-sparse flash attention plan (pallas backend
-  # only). Swept on the real chip per mask (tools/sweep_attention_tiles.py,
-  # bf16, ms/layer fwd / fwd+bwd):
-  #   1-degree:    512 -> 1.72/3.05, 768 -> 1.37/2.68, 1024 -> 1.43/2.91,
-  #                2048 -> 2.32/4.76
-  #   0.25-degree: 512 -> 13.10/22.59, 768 -> 8.87/17.41,
-  #                1024 -> 9.41/20.25 (hpb drops to 2)
-  # 768 wins both: it keeps hpb=4 head folding within the VMEM budget
-  # while a third fewer grid steps amortize the fixed per-step cost.
-  # Both production presets ship 768; the default stays 512 (the safe
-  # all-rounder for user-built masks with unknown band structure).
-  attention_tile_size: int = 512
-  # Whole-GNN remat for the encoder/decoder (DenoiserConfig.remat_gnns);
-  # required for the 0.25-degree single-chip training step.
+  # Tile edge of the block-sparse attention plan ('pallas' backend only).
+  attention_tile_size: int = sparse_attention.TILE
+  # Whole-GNN remat for the encoder/decoder (DenoiserConfig.remat_gnns):
+  # the backward recomputes the GNN MLPs instead of keeping their
+  # per-edge residuals.
   remat_gnns: bool = False
   # Run the model under models.casting.Bfloat16Cast (bf16 compute, f32
-  # master weights). Required at 0.25 degrees: the f32 train step needs
-  # 16.0GB on a 16GB chip; bf16 fits with headroom.
+  # master weights).
   cast_bf16: bool = False
   # Train with the donated-state functional step (training/steps.py:
   # functional_train_step) so updated params/optimizer state alias their
-  # inputs instead of holding a second full copy across the step.
-  # Memory-critical at paper scale; a spec flag (not a preset-name
-  # compare) so renamed/user-built specs keep the path.
+  # inputs instead of holding a second full copy across the step. A spec
+  # flag (not a preset-name compare) so renamed/user-built specs keep the
+  # path.
   use_donated_step: bool = False
 
 
@@ -96,55 +87,57 @@ TINY = ModelSpec(
     attention_k_hop=4, ffw_hidden=128)
 
 # The reference demo model (training/train.py defaults: mesh 4, d_model 256,
-# 16 layers, 4 heads, k_hop 8, 2.5-degree data). The fused tri-block Pallas
-# kernel beats the XLA einsum triblock 18.6 vs 24.7 ms/train-step here (it
-# removes the profiled probs-shaped softmax-bwd HBM round-trips); the
-# einsum path remains selectable as the CPU/numerics oracle.
-# bf16 by default like the larger presets: with the fused tri-block
-# kernel the combination (never measured in round 2, which A/B'd bf16
-# only against the XLA triblock) wins 13% on the train step (16.6 vs
-# 19.0 ms) and ~9% on the denoiser forward (3.12 vs 3.40 ms, same
-# session) on a v5e. --no-bf16 / cast_bf16=False restores f32.
+# 16 layers, 4 heads, k_hop 8, 2.5-degree data). bf16 compute with f32
+# master weights, like the larger presets; cast_bf16=False restores f32.
 NANO = ModelSpec(
     name='nano', task=registry.GENCAST_TASK, resolution_deg=2.5,
     mesh_splits=4, d_model=256, num_layers=16, num_heads=4,
-    attention_k_hop=8, attention_type='triblock_pallas', cast_bf16=True)
+    attention_k_hop=8, cast_bf16=True)
 
 # GenCast 1deg (README.md:168-175: splits=5, 1-degree, full variable set).
 # bf16 compute with f32 master weights is the default: it is the dtype
 # GenCast was actually trained in by DeepMind (the reference fork ships
-# the same Bfloat16Cast wrapper but never wires it into training), and on
-# a v5e it takes the train step from 209.9 to 173.8 ms (real-chip A/B,
-# 2026-08-17; the MXU-bound attention backward and the HBM-bound GNN tail
-# both scale with dtype width). --no_bf16 equivalents: train.py/evaluate
-# accept explicit flags; cast_bf16=False restores the f32 step.
+# the same Bfloat16Cast wrapper but never wires it into training).
+# cast_bf16=False restores the f32 step.
 ONE_DEG = ModelSpec(
     name='1deg', task=registry.GENCAST_TASK_FULL, resolution_deg=1.0,
     mesh_splits=5, d_model=512, num_layers=16, num_heads=4,
-    attention_k_hop=16, attention_type='pallas',
-    stochastic_churn_rate=2.5, remat_policy='save_attention',
-    use_agg_plans=True, cast_bf16=True, attention_tile_size=768)
+    attention_k_hop=16, stochastic_churn_rate=2.5,
+    remat_policy='save_attention', cast_bf16=True)
 
-# Paper-scale 0.25-degree splits=6 (README.md:157-166).
-# remat_policy='save_attention' keeps the Pallas attention kernel's
-# fused-VJP residuals (~2.7GB bf16 across the 16-layer scan) instead of
-# re-running the 8.9ms/layer attention forward in the backward: paired
-# real-chip A/B 2026-08-18 (tools/ab_qdeg.py), 2.926 -> 2.837 s/step,
-# four clean steps with the bf16 + donated-state memory plan.
+# Paper-scale 0.25-degree splits=6 (README.md:157-166). The memory plan:
+# streamed encoder/decoder edges, whole-GNN remat, a bf16 noise basis,
+# bf16 compute and the donated-state train step; 'save_attention' keeps
+# the attention kernel's residuals so the backward does not re-run its
+# forward.
 QUARTER_DEG = ModelSpec(
     name='0.25deg', task=registry.GENCAST_TASK_FULL, resolution_deg=0.25,
     mesh_splits=6, d_model=512, num_layers=16, num_heads=4,
-    attention_k_hop=16, attention_type='pallas',
+    attention_k_hop=16,
     stochastic_churn_rate=2.5,
     edge_chunk_size=128 * 1024,
     noise_basis_dtype='bfloat16',
     remat_policy='save_attention',
     remat_gnns=True,
     cast_bf16=True,
-    attention_tile_size=768,
     use_donated_step=True)
 
 SPECS = {s.name: s for s in (TINY, NANO, ONE_DEG, QUARTER_DEG)}
+
+def attention_type_for(spec: ModelSpec, platform: Optional[str] = None
+                       ) -> str:
+  """The attention backend a spec runs with.
+
+  An explicit `spec.attention_type` is kept. 'auto' takes the Triton
+  block-sparse kernel on the GPU, where it beat XLA's tri-block attention
+  at every preset measured (PERF.md, "Kernel decisions at bring-up"), and
+  XLA's tri-block attention on every other platform, where the kernel
+  does not compile.
+  """
+  if spec.attention_type != 'auto':
+    return spec.attention_type
+  platform = platform or jax.default_backend()
+  return 'pallas' if platform == 'gpu' else 'triblock'
 
 
 def grid_for_resolution(deg: float) -> Tuple[np.ndarray, np.ndarray]:
@@ -158,15 +151,14 @@ def build_statics(spec: ModelSpec,
                   cache_dir: Optional[str] = DEFAULT_CACHE_DIR
                   ) -> compiler.GraphStatics:
   lat, lon = grid_for_resolution(spec.resolution_deg)
+  pallas = attention_type_for(spec) == 'pallas'
   return compiler.build_graph_statics(
       spec.mesh_splits, lat, lon,
       radius_query_fraction_edge_length=(
           spec.radius_query_fraction_edge_length),
       attention_k_hop=spec.attention_k_hop,
-      attention_tile_size=(spec.attention_tile_size
-                           if spec.attention_type == 'pallas' else 0),
-      build_triblock_mask=spec.attention_type != 'pallas'
-      or spec.mesh_splits < 6,
+      attention_tile_size=spec.attention_tile_size if pallas else 0,
+      build_triblock_mask=not pallas,
       cache_dir=cache_dir)
 
 
@@ -232,14 +224,14 @@ def build_gencast(spec: ModelSpec, *, rngs: Optional[nnx.Rngs] = None,
   if statics is None:
     statics = build_statics(spec, cache_dir)
   dense_mask = None
-  if spec.attention_type == 'dense':
+  if attention_type_for(spec) == 'dense':
     from gencast_tpu.graph.compiler import khop_mask_csr
     dense_mask = khop_mask_csr(
         statics.mesh_edges.senders, statics.mesh_edges.receivers,
         statics.num_mesh_nodes, spec.attention_k_hop).toarray()
   transformer = TransformerConfig(
       d_model=spec.d_model, num_layers=spec.num_layers,
-      num_heads=spec.num_heads, attention_type=spec.attention_type,
+      num_heads=spec.num_heads, attention_type=attention_type_for(spec),
       ffw_hidden=spec.ffw_hidden,
       use_gradient_checkpointing=spec.use_gradient_checkpointing,
       remat_policy=spec.remat_policy,
@@ -249,7 +241,6 @@ def build_gencast(spec: ModelSpec, *, rngs: Optional[nnx.Rngs] = None,
       denoiser_config=DenoiserConfig(latent_size=spec.d_model,
                                      hidden_layers=spec.hidden_layers,
                                      edge_chunk_size=spec.edge_chunk_size,
-                                     use_agg_plans=spec.use_agg_plans,
                                      remat_gnns=spec.remat_gnns),
       sampler_config=SamplerConfig(
           stochastic_churn_rate=spec.stochastic_churn_rate,

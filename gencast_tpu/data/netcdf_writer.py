@@ -9,7 +9,7 @@ ncdump, and this package's own h5py reader (data/era5_netcdf.py).
 Role of the reference's compressed rollout export
 (training/evaluation.py:194-260: xarray.Dataset.to_netcdf with per-
 variable zlib encoding); here the deliverable artifact is produced
-without requiring the xarray stack on the TPU host.
+without requiring the xarray stack on the training host.
 """
 
 from __future__ import annotations

@@ -4,8 +4,8 @@ The reference's training input is a Grain ``MapDataset`` whose map workers
 can run out-of-process (reference: training/era5_dataset.py:797-842). The
 repo's single background thread (`data.prefetch.DevicePrefetcher`) covers
 the transfer-overlap half of that role; this module covers the other half:
-CPU-parallel window packing for hosts where one core cannot keep a TPU fed
-(0.25-degree batches cost ~seconds of single-core file-read + pack work).
+CPU-parallel window packing for hosts where one core cannot keep the device fed
+(0.25-degree batches are the heaviest file-read + pack work).
 
 Design
 ------
@@ -19,7 +19,7 @@ identical to the in-process iterator — tests/test_data_workers.py pins
 that oracle.
 
 Workers are started with the 'spawn' context by default: the parent
-typically has live JAX/TPU-client threads, which make fork() unsafe.
+typically has live JAX runtime threads, which make fork() unsafe.
 Workers never touch a device — they import numpy/h5py code paths only
 (JAX backend initialization is lazy and no worker op triggers it).
 

@@ -154,8 +154,8 @@ def _banded_mask_from_csr(mask: sparse.csr_matrix,
                           block_size_multiple: int = 8) -> BandedMask:
   """Packs a banded boolean mask into tri-block-diagonal blocks.
 
-  block_size_multiple rounds the block size up for TPU tiling (sublane /
-  lane alignment); correctness only needs block_size > bandwidth.
+  block_size_multiple rounds the block size up for aligned einsum tiles;
+  correctness only needs block_size > bandwidth.
   """
   num_nodes = mask.shape[0]
   coo = mask.tocoo()

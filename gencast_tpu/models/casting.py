@@ -1,9 +1,9 @@
 """Mixed-precision execution: bf16 compute with f32 master weights.
 
 The reference's Bfloat16Cast wrapper (graphcast/casting.py:30-119) casts
-inputs to bf16 and back around the model. On TPU the win comes from bf16
-MXU matmuls, which requires the *parameters* to be bf16 in the compute
-graph too. `cast_compute` merges a module whose Params are cast to the
+inputs to bf16 and back around the model. The win comes from bf16
+tensor-core matmuls, which requires the *parameters* to be bf16 in the
+compute graph too. `cast_compute` merges a module whose Params are cast to the
 compute dtype — master weights stay f32 in the optimizer; softmax and edge
 aggregation still run in f32 via the precision guards
 (nn/precision.py, ops/segment.py f32_accumulate).
@@ -12,7 +12,7 @@ aggregation still run in f32 via the precision guards
 from __future__ import annotations
 
 
-import flax.nnx as nnx
+from gencast_tpu.nn import nnx
 import jax
 import jax.numpy as jnp
 

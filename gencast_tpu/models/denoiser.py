@@ -18,7 +18,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional
 
-import flax.nnx as nnx
+from gencast_tpu.nn import nnx
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -57,14 +57,6 @@ class DenoiserConfig:
   # parallelism for paper-scale training). None = no constraint; XLA
   # inserts the halo collectives implied by the graph edges.
   node_sharding_axis: Optional[str] = None
-  # Scatter-free GNN aggregation (ops/segment.py AggPlan): receiver
-  # aggregation and gather transposes run through the Pallas MXU-one-hot
-  # kernel instead of XLA scatter-adds on skewed edge sets. Profiled win
-  # at 1 degree+ (the scatters run ~25GB/s); irrelevant at nano scale.
-  use_agg_plans: bool = False
-  # Minimum segment max-degree for an edge side to get a kernel plan
-  # (segment.plan_if_profitable); below it the XLA scatter wins.
-  agg_plan_min_degree: int = 32
   # Remat the encoder/decoder GNNs as whole units: their backward then
   # recomputes MLP internals instead of saving them (at 0.25 degrees the
   # grid-node MLP residuals alone are several GB per layer of hidden
@@ -110,13 +102,6 @@ class DenoiserArchitecture(nnx.Module):
     m2g_topo = EdgeTopology('m2g', 'mesh', 'grid',
                             statics.mesh2grid.senders,
                             statics.mesh2grid.receivers)
-    if cfg.use_agg_plans:
-      g2m_topo = g2m_topo.with_agg_plans(
-          statics.num_grid_nodes, statics.num_mesh_nodes,
-          min_max_degree=cfg.agg_plan_min_degree)
-      m2g_topo = m2g_topo.with_agg_plans(
-          statics.num_mesh_nodes, statics.num_grid_nodes,
-          min_max_degree=cfg.agg_plan_min_degree)
 
     self.grid2mesh = TypedGraphNet(
         topologies=[g2m_topo],

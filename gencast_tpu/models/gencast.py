@@ -12,7 +12,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Dict, Optional, Tuple
 
-import flax.nnx as nnx
+from gencast_tpu.nn import nnx
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -87,10 +87,9 @@ class GenCast(nnx.Module):
 
     # The Legendre table is [L+1, L+1, num_lat]; at 0.25 degrees that is
     # 1.5GB f32, so the paper-scale config stores it bf16 (synthesis still
-    # accumulates f32 on the MXU; see ops/sph_harm.synthesize). The tables
-    # live as StaticData (traced operands): a plain attribute would be
-    # baked into the HLO as a constant, which at 0.25 degrees exceeds the
-    # compile-request limits of remote TPU runtimes.
+    # accumulates f32; see ops/sph_harm.synthesize). The tables live as
+    # StaticData (traced operands): a plain attribute would be baked into
+    # the program as a 1.5GB constant.
     basis = sph_harm.basis_for_grid(statics.grid_lat, statics.grid_lon,
                                     dtype=noise_basis_dtype)
     self._sh_legendre = StaticData(basis.legendre)

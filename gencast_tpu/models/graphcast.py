@@ -13,7 +13,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Dict, Optional, Tuple
 
-import flax.nnx as nnx
+from gencast_tpu.nn import nnx
 import jax
 import jax.numpy as jnp
 
@@ -36,10 +36,6 @@ class GraphCastConfig:
   # Streamed edge processing for the 1-step encoder/decoder GNNs (see
   # nn/gnn.py); required at paper scale on a single chip.
   edge_chunk_size: Optional[int] = None
-  # Scatter-free GNN aggregation on skewed edge sets (see
-  # DenoiserConfig.use_agg_plans / ops/segment.py).
-  use_agg_plans: bool = False
-  agg_plan_min_degree: int = 32
   # Gradient checkpointing for paper scale on one chip: jax.checkpoint
   # around the grid2mesh encoder, EACH of the gnn_msg_steps processor
   # steps (the 16 unshared multimesh MP steps carry ~1.5 GB bf16 of MLP
@@ -50,9 +46,9 @@ class GraphCastConfig:
   remat: bool = False
   # With remat on, group the processor steps into remat_group-sized
   # nested-checkpoint blocks (sqrt-style hierarchical remat). 1 = flat
-  # per-step remat. 4 fits the 37-level published configuration at 0.25
-  # degrees on a 16GB chip, where flat remat's 16 live step boundaries
-  # (~480 MB node+edge latents each) exceed HBM by ~2.2 GB.
+  # per-step remat; a group of g keeps about 16/g + g step boundaries
+  # (~480 MB of node+edge latents each for the 37-level configuration at
+  # 0.25 degrees) live instead of 16.
   remat_group: int = 1
 
 
@@ -68,14 +64,6 @@ LOSS_WEIGHTS_SURFACE = {
 
 class GraphCast(nnx.Module):
   """Deterministic predictor over packed [B, lat, lon, C] tensors."""
-
-  @staticmethod
-  def _plan(topo: EdgeTopology, num_senders: int, num_receivers: int,
-            cfg: GraphCastConfig) -> EdgeTopology:
-    if not cfg.use_agg_plans:
-      return topo
-    return topo.with_agg_plans(num_senders, num_receivers,
-                               min_max_degree=cfg.agg_plan_min_degree)
 
   def __init__(self, task: TaskSpec, statics: GraphStatics,
                config: GraphCastConfig = GraphCastConfig(), *,
@@ -140,11 +128,9 @@ class GraphCast(nnx.Module):
                   use_norm_conditioning=False, rngs=rngs)
 
     self.grid2mesh = TypedGraphNet(
-        topologies=[self._plan(
-            EdgeTopology('g2m', 'grid', 'mesh',
-                         statics.grid2mesh.senders,
-                         statics.grid2mesh.receivers),
-            statics.num_grid_nodes, statics.num_mesh_nodes, cfg)],
+        topologies=[EdgeTopology('g2m', 'grid', 'mesh',
+                                 statics.grid2mesh.senders,
+                                 statics.grid2mesh.receivers)],
         num_nodes=num_nodes,
         node_input_sizes={'grid': 3 + num_data, 'mesh': 3},
         edge_input_sizes={'g2m': 4},
@@ -156,11 +142,9 @@ class GraphCast(nnx.Module):
         **common)
 
     self.mesh_gnn = TypedGraphNet(
-        topologies=[self._plan(
-            EdgeTopology('mesh', 'mesh', 'mesh',
-                         statics.multimesh_edges.senders,
-                         statics.multimesh_edges.receivers),
-            statics.num_mesh_nodes, statics.num_mesh_nodes, cfg)],
+        topologies=[EdgeTopology('mesh', 'mesh', 'mesh',
+                                 statics.multimesh_edges.senders,
+                                 statics.multimesh_edges.receivers)],
         num_nodes={'mesh': statics.num_mesh_nodes},
         node_input_sizes={},
         edge_input_sizes={'mesh': 4},
@@ -174,11 +158,9 @@ class GraphCast(nnx.Module):
         **common)
 
     self.mesh2grid = TypedGraphNet(
-        topologies=[self._plan(
-            EdgeTopology('m2g', 'mesh', 'grid',
-                         statics.mesh2grid.senders,
-                         statics.mesh2grid.receivers),
-            statics.num_mesh_nodes, statics.num_grid_nodes, cfg)],
+        topologies=[EdgeTopology('m2g', 'mesh', 'grid',
+                                 statics.mesh2grid.senders,
+                                 statics.mesh2grid.receivers)],
         num_nodes=num_nodes,
         node_input_sizes={},
         edge_input_sizes={'m2g': 4},

@@ -11,7 +11,7 @@ from __future__ import annotations
 
 from typing import Dict, Tuple
 
-import flax.nnx as nnx
+from gencast_tpu.nn import nnx
 import jax.numpy as jnp
 import numpy as np
 

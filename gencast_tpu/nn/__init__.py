@@ -1,1 +1,1 @@
-"""Neural-net building blocks (flax NNX)."""
+"""Neural-net building blocks (gencast_tpu.nn.nnx modules)."""

@@ -1,6 +1,6 @@
 """Typed graph networks over static topologies.
 
-The TPU-first counterpart of the reference's typed_graph_net.py +
+The counterpart of the reference's typed_graph_net.py +
 deep_typed_graph_net.py: node/edge sets are plain dicts of [N, B, C] /
 [E, B, C] arrays, topology (sender/receiver indices) is static numpy fixed
 at construction, and aggregation is a sorted segment-sum. All MLP input
@@ -14,7 +14,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Callable, Dict, List, Mapping, Optional, Tuple
 
-import flax.nnx as nnx
+from gencast_tpu.nn import nnx
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -32,38 +32,16 @@ class EdgeTopology:
   equality/hash must be well-defined for numpy fields — content-based
   equality lets a re-created model hit the jit cache instead of crashing
   pytree metadata comparison.
-
-  Optional scatter-free aggregation plans (ops/segment.py AggPlan): when
-  set, receiver aggregation and the AD transposes of both sender and
-  receiver gathers run through the planned ELL / MXU-one-hot paths instead
-  of XLA scatter-adds (profiled ~25GB/s at 1 degree).
   """
   name: str
   sender_set: str
   receiver_set: str
   senders: np.ndarray
   receivers: np.ndarray
-  recv_plan: Optional[segment.AggPlan] = None
-  sender_plan: Optional[segment.AggPlan] = None
 
   @property
   def num_edges(self) -> int:
     return self.senders.shape[0]
-
-  def with_agg_plans(self, num_sender_nodes: int, num_receiver_nodes: int,
-                     tile: int = 128, width: int = 512,
-                     min_max_degree: int = 32) -> 'EdgeTopology':
-    """Returns a copy carrying scatter-free aggregation plans where the
-    degree skew makes the MXU kernel profitable (segment.plan_if_profitable);
-    uniform / near-uniform sides keep the dense or scatter paths."""
-    return dataclasses.replace(
-        self,
-        recv_plan=segment.plan_if_profitable(
-            self.receivers, num_receiver_nodes, tile=tile, width=width,
-            min_max_degree=min_max_degree),
-        sender_plan=segment.plan_if_profitable(
-            self.senders, num_sender_nodes, tile=tile, width=width,
-            min_max_degree=min_max_degree))
 
   def __eq__(self, other):
     return (isinstance(other, EdgeTopology)
@@ -71,13 +49,7 @@ class EdgeTopology:
             and self.sender_set == other.sender_set
             and self.receiver_set == other.receiver_set
             and np.array_equal(self.senders, other.senders)
-            and np.array_equal(self.receivers, other.receivers)
-            and (self.recv_plan is None) == (other.recv_plan is None)
-            and (self.sender_plan is None) == (other.sender_plan is None)
-            and (self.recv_plan is None
-                 or self.recv_plan.meta == other.recv_plan.meta)
-            and (self.sender_plan is None
-                 or self.sender_plan.meta == other.sender_plan.meta))
+            and np.array_equal(self.receivers, other.receivers))
 
   def __hash__(self):
     return hash((self.name, self.sender_set, self.receiver_set,
@@ -150,20 +122,6 @@ class InteractionNetwork(nnx.Module):
     self.f32_aggregation = f32_aggregation
     self.aggregate_normalization = aggregate_normalization
 
-    # Device-resident AggPlan operand buffers, one entry per planned
-    # topology (ops/segment.py). Kept here (not in EdgeTopology, which is
-    # static graphdef metadata) so they live as traced StaticData instead
-    # of baked-in jit constants.
-    self.recv_plan_ops = nnx.Dict()
-    self.sender_plan_ops = nnx.Dict()
-    for topo in topologies:
-      if topo.recv_plan is not None:
-        self.recv_plan_ops[topo.name] = nnx.List(
-            [StaticData(a) for a in topo.recv_plan.device_arrays()])
-      if topo.sender_plan is not None:
-        self.sender_plan_ops[topo.name] = nnx.List(
-            [StaticData(a) for a in topo.sender_plan.device_arrays()])
-
     self.edge_mlps = nnx.Dict()
     for topo in topologies:
       in_size = (edge_sizes[topo.name] + node_sizes[topo.sender_set]
@@ -183,28 +141,13 @@ class InteractionNetwork(nnx.Module):
           use_layer_norm=use_layer_norm,
           use_norm_conditioning=use_norm_conditioning, rngs=rngs)
 
-  def _gather(self, x: jnp.ndarray, indices: np.ndarray,
-              plan: Optional[segment.AggPlan],
-              plan_ops) -> jnp.ndarray:
-    if (plan is not None
-        and segment._uniform_degree(indices, x.shape[0]) is None):
-      arrs = tuple(v[...] for v in plan_ops)
-      return segment.gather_planned(x, indices, arrs, plan.meta)
-    return segment.gather(x, indices)
-
   def __call__(self, nodes: NodeFeats, edges: EdgeFeats,
                cond: Optional[jnp.ndarray] = None
                ) -> Tuple[NodeFeats, EdgeFeats]:
     new_edges = {}
     for topo in self.topologies:
-      sent = self._gather(
-          nodes[topo.sender_set], topo.senders, topo.sender_plan,
-          self.sender_plan_ops[topo.name]
-          if topo.sender_plan is not None else None)
-      received = self._gather(
-          nodes[topo.receiver_set], topo.receivers, topo.recv_plan,
-          self.recv_plan_ops[topo.name]
-          if topo.recv_plan is not None else None)
+      sent = segment.gather(nodes[topo.sender_set], topo.senders)
+      received = segment.gather(nodes[topo.receiver_set], topo.receivers)
       concat = jnp.concatenate([edges[topo.name], sent, received], axis=-1)
       new_edges[topo.name] = self.edge_mlps[topo.name](concat, cond)
 
@@ -213,13 +156,7 @@ class InteractionNetwork(nnx.Module):
       parts = [nodes[name]]
       for topo in self.topologies:
         if topo.receiver_set == name:
-          if topo.recv_plan is not None:
-            arrs = tuple(v[...] for v in self.recv_plan_ops[topo.name])
-            parts.append(segment.segment_sum_planned(
-                new_edges[topo.name], arrs, topo.recv_plan.meta,
-                f32_accumulate=self.f32_aggregation,
-                normalization=self.aggregate_normalization))
-          else:
+          with jax.named_scope(f'segment_sum_{topo.name}'):
             parts.append(segment.sorted_segment_sum(
                 new_edges[topo.name], topo.receivers,
                 num_segments=self.num_nodes[name],
@@ -283,17 +220,16 @@ class TypedGraphNet(nnx.Module):
     # senders per grid node) get a degree-aligned chunk so every chunk
     # holds whole receivers: aggregation becomes a dense reshape-sum
     # emitted through the scan, and the receiver gather a contiguous
-    # row broadcast — no scatter anywhere. Profiled at 0.25 degrees the
-    # generic path's scatter complex (forward aggregation + remat replay
-    # + receiver-gather transpose, each ~175ms into the [1.04M, 512]
-    # accumulator at ~145GB/s) was ~18% of the whole train step.
+    # row broadcast — no scatter anywhere (the generic path scatters into
+    # a [1.04M, 512] accumulator at 0.25 degrees three times per step:
+    # forward aggregation, remat replay and receiver-gather transpose).
     self.stream_meta = {}
     if edge_chunk_size is not None:
       if num_message_passing_steps != 1 or num_processor_repetitions != 1:
         raise ValueError('edge_chunk_size requires a single-step graph net')
       # Chunked sender/receiver/validity tables as device buffers: plain
-      # numpy here would be baked into the HLO as multi-MB constants
-      # (fatal for remote-compile payload limits at paper scale).
+      # numpy here would be baked into the HLO as multi-MB constants at
+      # paper scale.
       for topo in topologies:
         e = topo.num_edges
         k_uni = segment._uniform_degree(topo.receivers,
@@ -478,8 +414,7 @@ class TypedGraphNet(nnx.Module):
         # dynamic-slice each chunk's contiguous rows inside the body —
         # stacking the rows as a scan input would materialize a second
         # full copy of the receiver latents ([1.04M, 512] ≈ 1 GB at
-        # 0.25 degrees, which tips the bf16+save_attention memory plan
-        # over the 16 GB chip). As a scan constant it is saved once and
+        # 0.25 degrees). As a scan constant it is saved once and
         # its AD transpose is a dense dynamic_update_slice accumulation,
         # not a scatter.
         recv_pad = jnp.pad(

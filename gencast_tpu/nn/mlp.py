@@ -1,4 +1,4 @@
-"""MLPs with conditional layer normalization (FiLM), flax NNX.
+"""MLPs with conditional layer normalization (FiLM).
 
 Initialization and structure match the reference (common/mlp.py): xavier-
 uniform kernels / zero biases for MLPs, truncated-normal(1e-8) for the FiLM
@@ -11,7 +11,7 @@ from __future__ import annotations
 
 from typing import Callable, Optional, Sequence
 
-import flax.nnx as nnx
+from gencast_tpu.nn import nnx
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -74,33 +74,6 @@ class FiLM(nnx.Module):
     return x * (scale_minus_one + 1.0) + offset
 
 
-def apply_ln_film(x: jnp.ndarray, film: 'FiLM',
-                  cond: jnp.ndarray) -> Optional[jnp.ndarray]:
-  """Fused LayerNorm(no scale/bias)+FiLM when profitable, else None.
-
-  The single-pass Pallas backward (ops/ln_film.py) removes the edge-scale
-  reduce fusions that dominate the GNN tail of the 1-degree train step.
-  The LayerNorm must be parameter-free (use_norm_conditioning=True
-  guarantees that for CondMLP; the transformer blocks construct theirs
-  the same way), so only the FiLM linear receives gradients.
-  """
-  from gencast_tpu.ops import ln_film as _lf
-  if x.ndim != 3 or cond.ndim != 2:
-    return None
-  b = cond.shape[0]
-  # Same layout preference order as _align_cond: nodes-leading first.
-  if x.shape[1] == b:
-    batch_axis = 1
-  elif x.shape[0] == b:
-    batch_axis = 0
-  else:
-    return None
-  if not _lf.enabled(x, b, batch_axis):
-    return None
-  scale_minus_one, offset = jnp.split(film.linear(cond), 2, axis=-1)
-  return _lf.ln_film(x, scale_minus_one + 1.0, offset, batch_axis)
-
-
 def _align_cond(x: jnp.ndarray, cond: jnp.ndarray) -> jnp.ndarray:
   """Broadcast [B, D] conditioning against [..., B, ..., C] activations.
 
@@ -150,9 +123,6 @@ class CondMLP(nnx.Module):
     if self.use_norm_conditioning:
       if cond is None:
         raise ValueError('conditioning vector required but not provided')
-      fused = apply_ln_film(x, self.film, cond)
-      if fused is not None:
-        return fused
       x = self.layer_norm(x)
       return self.film(x, _align_cond(x, cond))
     if self.use_layer_norm:

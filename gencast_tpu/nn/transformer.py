@@ -5,13 +5,12 @@ so k-hop attention is tri-block-diagonal at coarse granularity and
 block-sparse at fine granularity. Backends (same weights, same math):
 
 * 'triblock' — pure-XLA einsum implementation with a joint 3-block softmax;
-  the numerics oracle and CPU fallback (reference
+  the numerics reference and the path off the GPU (reference
   gencast/sparse_transformer.py:100-125, 294-354).
 * 'dense'    — full masked attention for small meshes.
-* 'pallas'   — block-sparse flash kernel (gencast_tpu.ops.sparse_attention),
-  ~3x faster than triblock at the 1-degree scale.
-* 'triblock_pallas' — fused tri-block kernel (gencast_tpu.ops.
-  banded_attention): triblock's math with flash-style fused softmax/bwd.
+* 'pallas'   — block-sparse flash kernel over a TilePlan
+  (gencast_tpu.ops.sparse_attention), compiled for the GPU through
+  Triton.
 
 The layer stack runs as a `lax.scan` over stacked per-layer parameters
 (one transformer block in the compiled program instead of num_layers
@@ -25,7 +24,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional, Tuple
 
-import flax.nnx as nnx
+from gencast_tpu.nn import nnx
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -33,7 +32,7 @@ from jax.sharding import PartitionSpec as P
 
 from gencast_tpu.graph.compiler import BandedMask
 from gencast_tpu.nn import precision
-from gencast_tpu.nn.mlp import FiLM, apply_ln_film
+from gencast_tpu.nn.mlp import FiLM
 from gencast_tpu.nn.variables import StaticData
 
 
@@ -64,14 +63,17 @@ class TransformerConfig:
   #                      memory; the attention forward runs twice).
   #   'save_attention' — keep the attention sublayer OUT of the remat
   #                      region so its residuals (for the pallas kernel:
-  #                      q/k/v/out/lse via the fused custom VJP) are saved
-  #                      and only LN/FiLM/FFW are recomputed. Profiled at
-  #                      1 degree: removes the ~2ms/layer pallas-forward
-  #                      recompute from the backward at ~30MB/layer HBM.
+  #                      q/k/v/out/lse via its custom VJP) are saved and
+  #                      only LN/FiLM/FFW are recomputed: the backward no
+  #                      longer re-runs the attention forward, for
+  #                      O(N * d) saved bytes per layer.
   #                      Intended for attention_type='pallas'; with
   #                      'triblock' it saves the O(block^2) softmax
   #                      intermediates instead, which defeats the remat.
   remat_policy: str = 'full'
+  # Run the 'pallas' kernel through the Pallas interpreter; only CPU
+  # tests set it (off the GPU the kernel otherwise refuses to run).
+  interpret: bool = False
 
   def __post_init__(self):
     if self.remat_policy not in ('full', 'save_attention'):
@@ -136,6 +138,36 @@ def _joint_softmax3(logits):
   return ed / denom, eu / denom, el / denom
 
 
+def triblock_attention(q, k, v, mask, block_size: int):
+  """Tri-block-diagonal attention on [B, Np, H, hd] operands.
+
+  Np is a multiple of block_size; mask [3, nb, bs, bs] holds the diag,
+  upper (next) and lower (previous) key blocks of each query block."""
+  b, np_, h, hd = q.shape
+  nb = np_ // block_size
+  q, k, v = (t.reshape(b, nb, block_size, h, hd) for t in (q, k, v))
+  zero = lambda t: jnp.zeros_like(t[:, :1])
+  k = jnp.concatenate([zero(k), k, zero(k)], axis=1)
+  v = jnp.concatenate([zero(v), v, zero(v)], axis=1)
+
+  scale = hd ** -0.5
+  def qk(queries, keys):
+    return jnp.einsum('bnqhd,bnkhd->bnhqk', queries, keys) * scale
+
+  neg = jnp.asarray(-1e30, dtype=q.dtype)
+  # Key blocks aligned with each query block: diag, upper (next), lower
+  # (previous); k/v were padded with one zero block on each side.
+  logits = tuple(
+      jnp.where(mask[i][None, :, None], qk(q, kk), neg)
+      for i, kk in ((0, k[:, 1:-1]), (1, k[:, 2:]), (2, k[:, :-2])))
+  wd, wu, wl = precision.with_f32(_joint_softmax3, logits)
+
+  def av(w, values):
+    return jnp.einsum('bnhqk,bnkhd->bnqhd', w, values)
+  o = (av(wd, v[:, 1:-1]) + av(wu, v[:, 2:]) + av(wl, v[:, :-2]))
+  return o.reshape(b, np_, h, hd)
+
+
 class TriblockAttention(nnx.Module):
   """Tri-block-diagonal attention (XLA einsum path). Mask passed per call.
 
@@ -153,60 +185,11 @@ class TriblockAttention(nnx.Module):
   def __call__(self, x: jnp.ndarray, attn_args) -> jnp.ndarray:
     # x: [B, N, C] with N the real or pre-padded node count.
     (mask,) = attn_args  # [3, nb, bs, bs] bool
-    cfg = self.cfg
-    n = x.shape[1]
-    bs = self.block_size
-    x_p = jnp.pad(x, ((0, 0), (0, self.padded_nodes - n), (0, 0)))
-    nb = x_p.shape[1] // bs
-    x_b = x_p.reshape(x_p.shape[0], nb, bs, cfg.d_model)
-
-    q, k, v = self.proj.split_heads(x_b)  # [B, nb, bs, H, hd]
-    zero = lambda t: jnp.zeros_like(t[:, :1])
-    k = jnp.concatenate([zero(k), k, zero(k)], axis=1)
-    v = jnp.concatenate([zero(v), v, zero(v)], axis=1)
-
-    scale = cfg.head_dim ** -0.5
-    def qk(queries, keys):
-      return jnp.einsum('bnqhd,bnkhd->bnhqk', queries, keys) * scale
-
-    neg = jnp.asarray(-1e30, dtype=q.dtype)
-    # Key blocks aligned with each query block: diag, upper (next), lower
-    # (previous); k/v were padded with one zero block on each side.
-    logits = tuple(
-        jnp.where(mask[i][None, :, None], qk(q, kk), neg)
-        for i, kk in ((0, k[:, 1:-1]), (1, k[:, 2:]), (2, k[:, :-2])))
-    wd, wu, wl = precision.with_f32(_joint_softmax3, logits)
-
-    def av(w, values):
-      return jnp.einsum('bnhqk,bnkhd->bnqhd', w, values)
-    o = (av(wd, v[:, 1:-1]) + av(wu, v[:, 2:]) + av(wl, v[:, :-2]))
-    o = o.reshape(o.shape[0], nb * bs, cfg.num_heads * cfg.head_dim)
-    return self.proj.out(o[:, :n])
-
-
-class TriblockPallasAttention(nnx.Module):
-  """Tri-block-diagonal attention via the fused Pallas kernel
-  (ops/banded_attention.py): same math as TriblockAttention, but the
-  3-block softmax and its backward run fused in VMEM instead of
-  materializing [nb, bs, bs]-shaped probability tensors in HBM (the
-  profiled softmax-bwd multiply_reduce hotspot at nano scale)."""
-
-  def __init__(self, cfg: TransformerConfig, block_size: int,
-               padded_nodes: int, *, rngs: nnx.Rngs):
-    self.cfg = cfg
-    self.proj = _QKVProjections(cfg, rngs=rngs)
-    self.block_size = block_size
-    self.padded_nodes = padded_nodes
-
-  def __call__(self, x: jnp.ndarray, attn_args) -> jnp.ndarray:
-    from gencast_tpu.ops import banded_attention
-    (mask,) = attn_args  # [3, nb, bs, bs] bool
-    cfg = self.cfg
     n = x.shape[1]
     x_p = jnp.pad(x, ((0, 0), (0, self.padded_nodes - n), (0, 0)))
     q, k, v = self.proj.split_heads(x_p)  # [B, Np, H, hd]
-    o = banded_attention.banded_attention(q, k, v, mask, self.block_size)
-    o = o.reshape(o.shape[0], o.shape[1], cfg.num_heads * cfg.head_dim)
+    o = triblock_attention(q, k, v, mask, self.block_size)
+    o = o.reshape(o.shape[0], o.shape[1], -1)
     return self.proj.out(o[:, :n])
 
 
@@ -232,23 +215,22 @@ class DenseAttention(nnx.Module):
 
 
 class PallasSparseAttention(nnx.Module):
-  """Block-sparse flash attention via the Pallas TPU kernel
+  """Block-sparse flash attention via the Triton-route Pallas kernel
   (ops/sparse_attention.py); tile-plan arrays passed per call."""
 
-  def __init__(self, cfg: TransformerConfig,
-               plan_meta: Tuple[int, int, int], *, rngs: nnx.Rngs):
+  def __init__(self, cfg: TransformerConfig, tile: int,
+               interpret: bool = False, *, rngs: nnx.Rngs):
     self.cfg = cfg
     self.proj = _QKVProjections(cfg, rngs=rngs)
-    self.plan_meta = plan_meta  # (tile, num_active_fwd, num_active_bwd)
+    self.tile = tile
+    self.interpret = interpret
 
   def __call__(self, x: jnp.ndarray, attn_args) -> jnp.ndarray:
     from gencast_tpu.ops import sparse_attention
-    mask_tiles, fwd_ids, fwd_pids, *bwd = attn_args
     cfg = self.cfg
     q, k, v = self.proj.split_heads(x)  # [B, N, H, hd]
     o = sparse_attention.sparse_banded_attention(
-        q, k, v, mask_tiles, fwd_ids, fwd_pids, tuple(bwd),
-        self.plan_meta)
+        q, k, v, attn_args, self.tile, self.interpret)
     o = o.reshape(o.shape[0], o.shape[1], cfg.num_heads * cfg.head_dim)
     return self.proj.out(o)
 
@@ -285,15 +267,11 @@ class TransformerBlock(nnx.Module):
 
   def attn_half(self, x: jnp.ndarray, cond: jnp.ndarray,
                 attn_args) -> jnp.ndarray:
-    h = apply_ln_film(x, self.film1, cond)
-    if h is None:
-      h = self.film1(self.ln1(x), cond[:, None, :])
+    h = self.film1(self.ln1(x), cond[:, None, :])
     return x + self.attn(h, attn_args)
 
   def ffw_half(self, x: jnp.ndarray, cond: jnp.ndarray) -> jnp.ndarray:
-    h = apply_ln_film(x, self.film2, cond)
-    if h is None:
-      h = self.film2(self.ln2(x), cond[:, None, :])
+    h = self.film2(self.ln2(x), cond[:, None, :])
     return x + self.ffw(h)
 
   def __call__(self, x: jnp.ndarray, cond: jnp.ndarray,
@@ -320,11 +298,10 @@ class MeshTransformer(nnx.Module):
     # Attention operands, owned once (shared across layers).
     # Node-axis padding hoisted out of the per-layer attention calls:
     # x is padded once before the layer scan and sliced once after, so
-    # the in-scan pads/slices become no-ops (measured ~4ms/step at 1
-    # degree across fwd+bwd). Padded rows are fully masked as keys and
-    # sliced off at the end; as queries the Pallas kernels return 0 for
-    # them while the einsum backends return a finite masked-softmax
-    # artifact — either way LN/FiLM/FFW keep them finite and their
+    # the in-scan pads/slices become no-ops. Padded rows are fully masked
+    # as keys and sliced off at the end; as queries the kernel returns 0
+    # for them while the einsum backends return a finite masked-softmax
+    # artifact. Either way LN/FiLM/FFW keep them finite and their
     # cotangents are exactly 0 (nothing downstream of the final slice
     # reads them).
     self._hoisted_pad = 0
@@ -334,45 +311,23 @@ class MeshTransformer(nnx.Module):
       block_kwargs = {}
     elif cfg.attention_type == 'pallas':
       assert tile_plan is not None, (
-          'pallas attention requires GraphStatics built with '
-          'attention_tile_size > 0')
-      from gencast_tpu.ops import sparse_attention
-      operands = [
-          StaticData(jnp.asarray(tile_plan.mask_tiles)),
-          StaticData(jnp.asarray(tile_plan.fwd_kv_ids)),
-          StaticData(jnp.asarray(tile_plan.fwd_pair_ids)),
-          StaticData(jnp.asarray(tile_plan.bwd_q_ids)),
-          StaticData(jnp.asarray(tile_plan.bwd_pair_ids)),
-      ]
-      if sparse_attention._FUSED_BWD:
-        # Opt-in fused two-pass backward (measured slower at 1-degree
-        # bf16; see ops/sparse_attention.py module docstring).
-        slot_ids, valid = sparse_attention.build_bwd_gather(tile_plan)
-        operands += [StaticData(jnp.asarray(slot_ids)),
-                     StaticData(jnp.asarray(valid))]
-      self.attn_operands = nnx.List(operands)
-      block_kwargs = {'plan_meta': (tile_plan.tile, tile_plan.num_active_fwd,
-                                    tile_plan.num_active_bwd)}
+          "'pallas' attention requires GraphStatics built with a tile plan")
+      self.attn_operands = nnx.List(
+          [StaticData(a) for a in tile_plan.device_arrays()])
+      block_kwargs = {'tile': tile_plan.tile, 'interpret': cfg.interpret}
       self._hoisted_pad = tile_plan.padded_n
-    elif cfg.attention_type in ('triblock', 'triblock_pallas'):
+    elif cfg.attention_type == 'triblock':
       assert mask is not None
-      # uint8 mask for the pallas kernel: bool operands lower to i32 in
-      # VMEM, quadrupling the three double-buffered mask streams (VMEM
-      # overflow at larger batch); the XLA path reads either dtype.
-      blocks = (mask.blocks.astype(np.uint8)
-                if cfg.attention_type == 'triblock_pallas' else mask.blocks)
-      self.attn_operands = nnx.List([StaticData(jnp.asarray(blocks))])
+      self.attn_operands = nnx.List([StaticData(jnp.asarray(mask.blocks))])
       block_kwargs = {'block_size': mask.block_size,
                       'padded_nodes': mask.num_blocks * mask.block_size}
       self._hoisted_pad = mask.num_blocks * mask.block_size
     else:
       raise ValueError(f'unknown attention_type {cfg.attention_type}')
 
-    def make_block(block_rngs: nnx.Rngs) -> _Block:
+    def make_block(block_rngs: nnx.Rngs) -> TransformerBlock:
       if cfg.attention_type == 'triblock':
         attn = TriblockAttention(cfg, rngs=block_rngs, **block_kwargs)
-      elif cfg.attention_type == 'triblock_pallas':
-        attn = TriblockPallasAttention(cfg, rngs=block_rngs, **block_kwargs)
       elif cfg.attention_type == 'pallas':
         attn = PallasSparseAttention(cfg, rngs=block_rngs, **block_kwargs)
       else:
@@ -380,12 +335,7 @@ class MeshTransformer(nnx.Module):
       return TransformerBlock(cfg, attn, rngs=block_rngs)
 
     if cfg.scan_layers:
-      @nnx.split_rngs(splits=cfg.num_layers)
-      @nnx.vmap(in_axes=(0,), out_axes=0)
-      def create_stack(r):
-        return make_block(r)
-
-      self.blocks = create_stack(rngs)
+      self.blocks = nnx.stacked_init(make_block, cfg.num_layers, rngs)
     else:
       self.blocks = nnx.List(
           [make_block(rngs) for _ in range(cfg.num_layers)])
@@ -439,7 +389,5 @@ class MeshTransformer(nnx.Module):
         else:
           x = block(x, cond, attn_args)
 
-    h = apply_ln_film(x, self.final_film, cond)
-    if h is None:
-      h = self.final_film(self.final_ln(x), cond[:, None, :])
+    h = self.final_film(self.final_ln(x), cond[:, None, :])
     return jnp.transpose(h[:, :n], (1, 0, 2))

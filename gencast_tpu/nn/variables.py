@@ -1,6 +1,6 @@
 """Custom NNX variable types."""
 
-import flax.nnx as nnx
+from gencast_tpu.nn import nnx
 
 
 class StaticData(nnx.Variable):

@@ -1,39 +1,26 @@
 """Edge -> node aggregation over static, receiver-sorted edge lists.
 
 The graph compiler sorts every edge set by receiver, so aggregation is a
-sorted segment-sum. Three execution strategies, fastest applicable wins:
+sorted segment-sum. Two strategies:
 
 1. Uniform-degree fast path: mesh2grid edges have exactly 3 senders per
    grid node (the containing triangle) and are receiver-sorted, so the
    segment ids are `repeat(arange(N), 3)` and the reduction is a dense
    reshape+sum (and its AD transpose a dense broadcast).
-2. MXU one-hot kernel (`SegmentPlan` + Pallas): TPU scatter-adds run far
-   below HBM bandwidth (profiled ~25GB/s at 1 degree), so for skewed
-   static degree distributions the kernel tiles output nodes into rows of
-   T, walks the receiver-sorted edge stream in blocks of W, builds the
-   [T, W] one-hot IN VMEM from the block's receiver ids, and reduces with
-   an MXU matmul. Materializing that one-hot in HBM via plain XLA would
-   cost ~E*T*4 bytes (1.6GB at 0.25 deg) — the whole point is that it
-   only ever exists as a VMEM tile.
-3. XLA sorted scatter-add fallback (CPU, tiny edge sets).
+2. Otherwise XLA's sorted segment sum (`indices_are_sorted=True`), and
+   `jnp.take` for the sender gather.
 
 Replaces jraph.segment_sum usage in the reference
-(common/typed_graph_net.py:62-64, 173, 182). `gather` has a matching
-custom-VJP variant whose transpose routes through the same kernel
-(permute to sorted order + sorted-segment-sum) instead of an XLA scatter.
+(common/typed_graph_net.py:62-64, 173, 182).
 """
 
 from __future__ import annotations
 
-import dataclasses
-import functools
-from typing import Optional, Tuple
+from typing import Optional
 
 import jax
 import jax.numpy as jnp
 import numpy as np
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
 
 def _uniform_degree(segment_ids, num_segments: int) -> Optional[int]:
@@ -94,314 +81,3 @@ def gather(nodes: jnp.ndarray, indices: jnp.ndarray) -> jnp.ndarray:
     return rep.reshape((e,) + nodes.shape[1:])
   return jnp.take(nodes, indices, axis=0, indices_are_sorted=False,
                   unique_indices=False)
-
-
-# ---------------------------------------------------------------------------
-# MXU segment-sum: Pallas one-hot-in-VMEM kernel over a static plan.
-# ---------------------------------------------------------------------------
-
-
-@dataclasses.dataclass(frozen=True)
-class SegmentPlan:
-  """Static schedule for the MXU segment-sum kernel.
-
-  Output nodes are tiled into rows of `tile`; the (receiver-sorted) edge
-  stream is cut into blocks of `width`. Each grid step processes one
-  (node_tile, edge_block) pair; a node tile owns the contiguous run of
-  blocks overlapping its edge range (runs may share boundary blocks —
-  the in-kernel one-hot range check makes out-of-tile edges contribute
-  exactly zero). Node tiles with no edges get one slot pointing at block 0
-  purely to zero-initialize their output rows.
-
-  recv_blocked: [num_blocks, width] int32 receiver ids, -1 padding.
-  pair_*: [P] int32 per grid step — edge block id, node tile id, and
-    first/last-slot-of-tile flags (first resets the VMEM accumulator,
-    last flushes it to the output tile).
-  """
-  tile: int
-  width: int
-  num_segments: int
-  num_edges: int
-  recv_blocked: np.ndarray
-  pair_block: np.ndarray
-  pair_tile: np.ndarray
-  pair_first: np.ndarray
-  pair_last: np.ndarray
-
-  @property
-  def num_pairs(self) -> int:
-    return self.pair_block.shape[0]
-
-  @property
-  def num_tiles(self) -> int:
-    return -(-self.num_segments // self.tile)
-
-  def device_arrays(self) -> Tuple[jnp.ndarray, ...]:
-    return (jnp.asarray(self.pair_block), jnp.asarray(self.pair_tile),
-            jnp.asarray(self.pair_first), jnp.asarray(self.pair_last),
-            jnp.asarray(self.recv_blocked))
-
-
-def build_segment_plan(receivers: np.ndarray, num_segments: int,
-                       tile: int = 128, width: int = 512) -> SegmentPlan:
-  """Builds the kernel schedule for a sorted receiver list."""
-  r = np.asarray(receivers, dtype=np.int32)
-  e = int(r.shape[0])
-  assert e == 0 or bool(np.all(np.diff(r) >= 0)), 'receivers must be sorted'
-  num_blocks = max(1, -(-e // width))
-  recv_blocked = np.full(num_blocks * width, -1, dtype=np.int32)
-  recv_blocked[:e] = r
-  # [nb, 1, width]: trailing block dims equal the array dims, satisfying
-  # the Mosaic (8, 128)-divisibility rule for sub-tile blocks.
-  recv_blocked = recv_blocked.reshape(num_blocks, 1, width)
-
-  num_tiles = -(-num_segments // tile)
-  bounds = np.arange(num_tiles + 1, dtype=np.int64) * tile
-  lo = np.searchsorted(r, bounds[:-1], side='left')
-  hi = np.searchsorted(r, bounds[1:], side='left')
-
-  pair_block, pair_tile, pair_first, pair_last = [], [], [], []
-  for t in range(num_tiles):
-    if hi[t] > lo[t]:
-      blocks = range(int(lo[t] // width), int(-(-hi[t] // width)))
-    else:
-      blocks = [0]  # no edges: one slot to zero + flush the output tile
-    blocks = list(blocks)
-    for j, b in enumerate(blocks):
-      pair_block.append(b)
-      pair_tile.append(t)
-      pair_first.append(1 if j == 0 else 0)
-      pair_last.append(1 if j == len(blocks) - 1 else 0)
-
-  return SegmentPlan(
-      tile=tile, width=width, num_segments=num_segments, num_edges=e,
-      recv_blocked=recv_blocked,
-      pair_block=np.asarray(pair_block, np.int32),
-      pair_tile=np.asarray(pair_tile, np.int32),
-      pair_first=np.asarray(pair_first, np.int32),
-      pair_last=np.asarray(pair_last, np.int32))
-
-
-def _interpret() -> bool:
-  return jax.default_backend() != 'tpu'
-
-
-def _segment_kernel(block_ref, tile_ref, first_ref, last_ref,
-                    recv_ref, data_ref, out_ref, acc, *, tile: int):
-  p = pl.program_id(0)
-
-  @pl.when(first_ref[p] == 1)
-  def _():
-    acc[...] = jnp.zeros_like(acc)
-
-  base = tile_ref[p] * tile
-  local = recv_ref[0, 0] - base                                 # [W]
-  rows = jax.lax.broadcasted_iota(jnp.int32, (tile, local.shape[0]), 0)
-  onehot = (local[None, :] == rows).astype(jnp.float32)         # [T, W]
-  # HIGHEST precision: the MXU's default single-pass bf16 multiply would
-  # round the f32 edge messages (~4e-3 relative — the scatter-add this
-  # kernel replaces is exact). The one-hot side is exact in any precision.
-  acc[...] += jax.lax.dot_general(
-      onehot, data_ref[...].astype(jnp.float32),
-      (((1,), (0,)), ((), ())), preferred_element_type=jnp.float32,
-      precision=jax.lax.Precision.HIGHEST)
-
-  @pl.when(last_ref[p] == 1)
-  def _():
-    out_ref[...] = acc[...].astype(out_ref.dtype)
-
-
-def _segment_sum_mxu_impl(data2d: jnp.ndarray, plan_arrays, meta):
-  """[E, F] edge features -> [num_segments, F] sums, via a SegmentPlan."""
-  tile, width, num_segments, num_pairs = meta
-  pair_block, pair_tile, pair_first, pair_last, recv_blocked = plan_arrays
-  e, f = data2d.shape
-  num_blocks = recv_blocked.shape[0]
-  num_tiles = -(-num_segments // tile)
-
-  data_p = jnp.pad(data2d, ((0, num_blocks * width - e), (0, 0)))
-
-  grid_spec = pltpu.PrefetchScalarGridSpec(
-      num_scalar_prefetch=4,
-      grid=(num_pairs,),
-      in_specs=[
-          pl.BlockSpec((1, 1, width),
-                       lambda p, blk, tl, fi, la: (blk[p], 0, 0)),
-          pl.BlockSpec((width, f), lambda p, blk, tl, fi, la: (blk[p], 0)),
-      ],
-      out_specs=pl.BlockSpec((tile, f), lambda p, blk, tl, fi, la: (tl[p], 0)),
-      scratch_shapes=[pltpu.VMEM((tile, f), jnp.float32)],
-  )
-  out = pl.pallas_call(
-      functools.partial(_segment_kernel, tile=tile),
-      grid_spec=grid_spec,
-      out_shape=jax.ShapeDtypeStruct((num_tiles * tile, f), data2d.dtype),
-      compiler_params=pltpu.CompilerParams(
-          dimension_semantics=('arbitrary',)),
-      interpret=_interpret(),
-  )(pair_block, pair_tile, pair_first, pair_last, recv_blocked, data_p)
-  return out[:num_segments]
-
-
-# ---------------------------------------------------------------------------
-# Unified aggregation plan: ELL (dense padded) or MXU kernel, custom VJP.
-# ---------------------------------------------------------------------------
-
-
-@dataclasses.dataclass(frozen=True)
-class AggPlan:
-  """Static scatter-free schedule for segment-sum over fixed segment_ids.
-
-  Wraps the Pallas one-hot SegmentPlan with the original (possibly
-  unsorted) segment_ids: the forward permutes to sorted order when needed
-  and runs the MXU kernel; the custom-VJP pair makes segment-sum's
-  backward a plain take at segment_ids, and `gather_planned`'s backward
-  the planned segment-sum — no XLA scatter anywhere in forward or
-  backward.
-
-  Profitable only for heavily skewed static degree distributions (mesh
-  side of grid2mesh / mesh2grid at 1 deg: max degree 594 / 845), where
-  the XLA scatter crawls at ~25GB/s — see `plan_if_profitable`. For
-  near-uniform degrees (grid side, max degree ~3) the scatter wins; ELL
-  padding was measured slower than both (the [N*D, F] take materializes).
-  """
-  num_segments: int
-  num_edges: int
-  segment_ids: np.ndarray
-  perm: Optional[np.ndarray] = None
-  mxu: Optional[SegmentPlan] = None
-
-  @property
-  def meta(self) -> tuple:
-    """Static, hashable kernel parameters (closed over in jit)."""
-    p = self.mxu
-    return ('mxu', p.tile, p.width, p.num_segments, p.num_pairs,
-            self.num_edges, self.perm is not None)
-
-  def device_arrays(self) -> Tuple[jnp.ndarray, ...]:
-    """Traced operands, ordered to match `meta`."""
-    base = (jnp.asarray(self.segment_ids),) + self.mxu.device_arrays()
-    if self.perm is not None:
-      base = (jnp.asarray(self.perm),) + base
-    return base
-
-
-def build_agg_plan(segment_ids: np.ndarray, num_segments: int, *,
-                   tile: int = 128, width: int = 512) -> AggPlan:
-  """Builds the MXU kernel plan (sorting segment_ids if needed)."""
-  ids = np.asarray(segment_ids, dtype=np.int32)
-  if np.all(np.diff(ids) >= 0):
-    perm = None
-    sorted_ids = ids
-  else:
-    perm = np.argsort(ids, kind='stable').astype(np.int32)
-    sorted_ids = ids[perm]
-  mxu = build_segment_plan(sorted_ids, num_segments, tile=tile, width=width)
-  if perm is not None:
-    # Fold the block padding into the permutation gather: the padded rows
-    # carry arbitrary (finite) data but recv_blocked is -1 there, so the
-    # one-hot excludes them. Saves a full-size HBM pad copy per call.
-    pad = mxu.recv_blocked.size - perm.size
-    perm = np.pad(perm, (0, pad))
-  return AggPlan(num_segments=num_segments, num_edges=int(ids.shape[0]),
-                 segment_ids=ids, perm=perm, mxu=mxu)
-
-
-def plan_if_profitable(segment_ids: np.ndarray, num_segments: int, *,
-                       min_max_degree: int = 32,
-                       tile: int = 128,
-                       width: int = 512) -> Optional[AggPlan]:
-  """AggPlan when the degree distribution favors the kernel, else None.
-
-  Thresholds from real-chip A/B at 1 degree (latent 512): skewed mesh-side
-  sets (max degree 594/845) win ~10-15%; the near-uniform grid side (max
-  degree 3) loses to the XLA scatter. Uniform-consecutive sets are covered
-  by the dense fast path upstream and never reach here profitably.
-  """
-  ids = np.asarray(segment_ids, dtype=np.int32)
-  if ids.size == 0 or num_segments <= 0:
-    return None
-  if _uniform_degree(ids, num_segments) is not None:
-    return None
-  max_deg = int(np.bincount(ids, minlength=num_segments).max())
-  if max_deg < min_max_degree:
-    return None
-  return build_agg_plan(ids, num_segments, tile=tile, width=width)
-
-
-def _planned_impl(data2d, plan_arrays, meta):
-  _, tile, width, num_segments, num_pairs, num_edges, has_perm = meta
-  if has_perm:
-    perm, _, *rest = plan_arrays
-    data2d = jnp.take(data2d, perm, axis=0)
-  else:
-    _, *rest = plan_arrays
-  return _segment_sum_mxu_impl(data2d, tuple(rest),
-                               (tile, width, num_segments, num_pairs))
-
-
-@functools.partial(jax.custom_vjp, nondiff_argnums=(2,))
-def _planned_segment_sum(data2d, plan_arrays, meta):
-  return _planned_impl(data2d, plan_arrays, meta)
-
-
-def _pss_fwd(data2d, plan_arrays, meta):
-  return _planned_impl(data2d, plan_arrays, meta), plan_arrays
-
-
-def _pss_bwd(meta, plan_arrays, g):
-  # d/d(data)[e] = g[segment_ids[e]] — a take, never a scatter.
-  ids = plan_arrays[1] if meta[6] else plan_arrays[0]
-  return jnp.take(g, ids, axis=0), None
-
-
-_planned_segment_sum.defvjp(_pss_fwd, _pss_bwd)
-
-
-def segment_sum_planned(data: jnp.ndarray, plan_arrays, meta,
-                        f32_accumulate: bool = False,
-                        normalization: Optional[float] = None) -> jnp.ndarray:
-  """Scatter-free segment sum of [E, B, C] data -> [N, B, C] via an AggPlan.
-
-  plan_arrays / meta come from AggPlan.device_arrays() / AggPlan.meta.
-  """
-  e = data.shape[0]
-  rest = data.shape[1:]
-  dtype = data.dtype
-  x = data.reshape(e, -1)
-  if f32_accumulate and dtype != jnp.float32:
-    x = x.astype(jnp.float32)
-  f = x.shape[1]
-  pad_f = (-f) % 128
-  if pad_f:
-    x = jnp.pad(x, ((0, 0), (0, pad_f)))
-  out = _planned_segment_sum(x, plan_arrays, meta)[:, :f]
-  if normalization is not None:
-    out = out / normalization
-  if f32_accumulate and dtype != jnp.float32:
-    out = out.astype(dtype)
-  num_segments = meta[3]
-  return out.reshape((num_segments,) + rest)
-
-
-@functools.partial(jax.custom_vjp, nondiff_argnums=(3,))
-def gather_planned(nodes, indices, plan_arrays, meta):
-  """nodes[indices] whose AD transpose is the planned segment-sum.
-
-  The AggPlan must be built over `indices` with
-  num_segments = nodes.shape[0].
-  """
-  return jnp.take(nodes, indices, axis=0)
-
-
-def _gp_fwd(nodes, indices, plan_arrays, meta):
-  return jnp.take(nodes, indices, axis=0), plan_arrays
-
-
-def _gp_bwd(meta, plan_arrays, g):
-  grad_nodes = segment_sum_planned(g, plan_arrays, meta,
-                                   f32_accumulate=g.dtype != jnp.float32)
-  return grad_nodes, None, None
-
-
-gather_planned.defvjp(_gp_fwd, _gp_bwd)

@@ -1,75 +1,52 @@
-"""Block-sparse flash attention over the k-hop mesh mask — Pallas TPU.
+"""Block-sparse flash attention over the k-hop mesh mask (Pallas, Triton).
 
 The RCM-permuted mesh gives a banded k-hop mask, but inside the band only
-~10-40% of fine tiles contain any allowed pair. This kernel therefore runs
-splash-style block sparsity (the role of `splash_attention` in the
-reference, gencast/sparse_transformer.py:128-159, 402-455):
+a fraction of the (q tile, kv tile) pairs hold any allowed entry. The
+graph compiler emits a `TilePlan`: for each query tile, the list of key/
+value tiles with any unmasked entry and the index of the pair's exact
+boolean mask tile; for each kv tile, the reverse list. Masked-out tiles
+are never read.
 
-* The graph compiler emits a `TilePlan`: for each query tile, the (padded)
-  list of key/value tiles with any unmasked entry, plus the exact boolean
-  mask tile for each active pair.
-* The forward kernel is an online-softmax flash loop: grid
-  (batch, q_tile, active_idx) with the active axis innermost and ALL
-  heads processed inside one grid step (an unrolled loop over the head
-  axis). Folding heads into the body instead of the grid amortizes the
-  fixed per-grid-step cost over H times more math and fetches each mask
-  tile once instead of once per head — measured 2.5x faster at the
-  1-degree scale where per-step overhead dominated. K/V/mask fetches are
-  driven by scalar-prefetched tile ids, so masked-out tiles are never
-  read. Padded list entries repeat the previous K/V id (the pipeline
-  elides the refetch) and point at a reserved all-zero mask tile,
-  contributing exactly nothing.
-* Backward defaults to two fused kernels: one for dq (same plan) and
-  one for dk/dv (reverse plan: per kv tile, the q tiles that touch
-  it), using saved row logsumexp + delta — no attention-matrix
-  materialization anywhere.
-* An OPTIONAL fused two-pass backward (`GENCAST_SPARSE_FUSED_BWD=1`)
-  sweeps the reverse plan ONCE, recomputing logits/exp a single time
-  per active pair: dk/dv accumulate in VMEM while each pair's dq
-  contribution is emitted as an input-dtype partial tile; a
-  host-precomputed gather (fwd slot -> flat reverse slot + validity
-  mask, `build_bwd_gather`) reduces the partials by q tile outside
-  the kernel. It saves 2 of 7 matmuls, half the exp/mask VPU work,
-  and one full q/k/v/do sweep per layer — but real-chip A/B at the
-  1-degree bf16 scale measured it SLOWER (186.1 vs 175.3 ms/step:
-  the partial-tile HBM round-trip + gather-reduce outweighs the
-  matmul saving once bf16 halves matmul cost), so it stays opt-in.
+Kernels, each one program per (tile, batch, head) so that a 1-degree
+mesh (161 q tiles x 4 heads at tile 64) fills the card's SMs:
 
-All matmuls run on the MXU via preferred_element_type=f32. The simpler
-tri-block kernel in ops/banded_attention.py remains as a small-mesh
-fallback and numerics cross-check.
+* forward: an online-softmax flash loop. A `fori_loop` inside the block
+  walks the q tile's active kv list; the block loads its own kv and pair
+  ids, and the trip count is the tile's own number of active pairs.
+* dq: the same walk, recomputing probabilities from the saved row
+  logsumexp.
+* dk/dv: one program per kv tile, walking the reverse list.
+
+Precision: bf16 operands go to the tensor cores with f32 accumulation
+(`pl.dot` with the default precision); f32 operands ask for
+`Precision.HIGHEST`, which Triton lowers to IEEE f32 products (no TF32),
+so the f32 path matches the plain reference to f32 round-off. Softmax
+arithmetic is f32 in both cases.
+
+The kernels compile for the GPU only. `interpret=True`, which the tests
+pass, runs them on the CPU through the Pallas interpreter; without it any
+other backend raises.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import functools
-import os
+import math
 from typing import Tuple
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
 NEG_INF = -1e30
-
-# Per-grid-step VMEM budget for head folding (MB). Mosaic's default 16MB
-# scoped budget caps hpb at 2 for tile=512, d=128; raising it (with an
-# explicit vmem_limit_bytes) allows hpb=4 — measured 216.9 -> 209.9 ms
-# on the 1-degree train step (real-chip A/B, 2026-08-17). Env-tunable.
-_HPB_BUDGET_MB = int(os.environ.get('GENCAST_SPARSE_HPB_BUDGET_MB', '24'))
-
-# Fused two-pass backward (one shared logits recompute for dq+dk+dv) vs
-# the classic separate dq / dkv kernels. MeshTransformer supplies the
-# build_bwd_gather arrays (selecting the fused path) only when this is
-# set: real-chip A/B at 1 degree bf16 measured the fused kernel SLOWER
-# (186.1 vs 175.3 ms/train-step; the dq-partial HBM round-trip plus the
-# outer gather-reduce outweighs the 2/7 matmul saving once bf16 has
-# already halved the matmul cost), so it is OFF by default and kept as
-# an option for f32-dominated or higher-arity plans.
-_FUSED_BWD = os.environ.get('GENCAST_SPARSE_FUSED_BWD', '0') == '1'
+# Tile edge of the production plans: a power of two (Triton's block
+# shapes) chosen by measurement on an H100 (see PERF.md, "Kernel
+# decisions at bring-up").
+TILE = 64
+_LOG2E = math.log2(math.e)
 
 
 # ---------------------------------------------------------------------------
@@ -81,18 +58,22 @@ _FUSED_BWD = os.environ.get('GENCAST_SPARSE_FUSED_BWD', '0') == '1'
 class TilePlan:
   """Static block-sparsity structure of the attention mask.
 
-  mask_tiles: [P + 1, tile, tile] uint8 — index P is the all-zero pad tile.
-  fwd_kv_ids / fwd_pair_ids: [nq, A] — kv tile & mask-tile index per
-    (q tile, active slot).
-  bwd_q_ids / bwd_pair_ids: [nk, B] — reverse lists for dk/dv.
+  mask_tiles: [P + 1, tile, tile] uint8, rows = queries, cols = keys;
+    index P is an all-zero pad tile.
+  fwd_kv_ids / fwd_pair_ids: [nq, A] kv tile and mask-tile index per
+    (q tile, active slot); fwd_counts [nq] the number of valid slots.
+  bwd_q_ids / bwd_pair_ids / bwd_counts: the reverse lists, per kv tile.
+  Slots past a tile's count repeat its last id and point at the pad tile.
   """
   tile: int
   padded_n: int
   mask_tiles: np.ndarray
   fwd_kv_ids: np.ndarray
   fwd_pair_ids: np.ndarray
+  fwd_counts: np.ndarray
   bwd_q_ids: np.ndarray
   bwd_pair_ids: np.ndarray
+  bwd_counts: np.ndarray
 
   @property
   def num_q_tiles(self) -> int:
@@ -106,300 +87,158 @@ class TilePlan:
   def num_active_bwd(self) -> int:
     return self.bwd_q_ids.shape[1]
 
+  def device_arrays(self) -> Tuple[jnp.ndarray, ...]:
+    """Traced kernel operands, in `sparse_banded_attention`'s order."""
+    return tuple(jnp.asarray(a) for a in (
+        self.mask_tiles, self.fwd_kv_ids, self.fwd_pair_ids,
+        self.fwd_counts, self.bwd_q_ids, self.bwd_pair_ids,
+        self.bwd_counts))
 
-def build_tile_plan(mask_csr, tile: int = 512) -> TilePlan:
-  """Builds the plan from a scipy CSR boolean mask [n, n]."""
+
+def build_tile_plan(mask_csr, tile: int = TILE) -> TilePlan:
+  """Builds the plan from a scipy boolean mask [n, n]."""
   n = mask_csr.shape[0]
   nt = -(-n // tile)
-  padded_n = nt * tile
-
   coo = mask_csr.tocoo()
-  pairs = np.unique(np.stack([coo.row // tile, coo.col // tile], axis=1),
-                    axis=0)
+  rows = coo.row.astype(np.int64)
+  cols = coo.col.astype(np.int64)
+  # Pair index of every nonzero; pairs come out sorted by (q tile, kv tile).
+  pairs, inverse = np.unique((rows // tile) * nt + cols // tile,
+                             return_inverse=True)
+  num_pairs = pairs.shape[0]
+  mask_tiles = np.zeros((num_pairs + 1, tile, tile), np.uint8)
+  mask_tiles[inverse, rows % tile, cols % tile] = 1
+  pair_q = (pairs // nt).astype(np.int32)
+  pair_kv = (pairs % nt).astype(np.int32)
+  pair_id = np.arange(num_pairs, dtype=np.int32)
 
-  csr = mask_csr.tocsr()
-  mask_tiles = []
-  pair_index = {}
-  for qi, kj in pairs:
-    r0, c0 = qi * tile, kj * tile
-    t = np.zeros((tile, tile), dtype=np.uint8)
-    sub = csr[r0:min(r0 + tile, n), c0:min(c0 + tile, n)].toarray()
-    t[:sub.shape[0], :sub.shape[1]] = sub
-    pair_index[(int(qi), int(kj))] = len(mask_tiles)
-    mask_tiles.append(t)
-  pad_tile = len(mask_tiles)
-  mask_tiles.append(np.zeros((tile, tile), dtype=np.uint8))
-  mask_tiles = np.stack(mask_tiles)
+  def lists(key, other):
+    order = np.lexsort((other, key))
+    key, other, pid = key[order], other[order], pair_id[order]
+    counts = np.bincount(key, minlength=nt).astype(np.int32)
+    width = max(1, int(counts.max()))
+    starts = np.concatenate([[0], np.cumsum(counts)[:-1]])
+    slot = np.arange(key.shape[0]) - starts[key]
+    ids = np.zeros((nt, width), np.int32)
+    pids = np.full((nt, width), num_pairs, np.int32)
+    ids[key, slot] = other
+    pids[key, slot] = pid
+    # Pad slots repeat the tile's last id (never read: loops stop at count).
+    last = ids[np.arange(nt), np.maximum(counts - 1, 0)]
+    pad = np.arange(width)[None, :] >= counts[:, None]
+    ids = np.where(pad, last[:, None], ids)
+    return ids, pids, counts
 
-  def build_lists(keyed_by_q: bool):
-    lists = [[] for _ in range(nt)]
-    for qi, kj in pairs:
-      if keyed_by_q:
-        lists[int(qi)].append((int(kj), pair_index[(int(qi), int(kj))]))
-      else:
-        lists[int(kj)].append((int(qi), pair_index[(int(qi), int(kj))]))
-    width = max(1, max(len(l) for l in lists))
-    ids = np.zeros((nt, width), dtype=np.int32)
-    pids = np.full((nt, width), pad_tile, dtype=np.int32)
-    for i, l in enumerate(lists):
-      for a, (other, pid) in enumerate(sorted(l)):
-        ids[i, a] = other
-        pids[i, a] = pid
-      for a in range(len(l), width):
-        ids[i, a] = ids[i, max(0, len(l) - 1)]
-    return ids, pids
-
-  fwd_kv, fwd_pid = build_lists(keyed_by_q=True)
-  bwd_q, bwd_pid = build_lists(keyed_by_q=False)
-  return TilePlan(tile=tile, padded_n=padded_n, mask_tiles=mask_tiles,
+  fwd_kv, fwd_pid, fwd_cnt = lists(pair_q, pair_kv)
+  bwd_q, bwd_pid, bwd_cnt = lists(pair_kv, pair_q)
+  return TilePlan(tile=tile, padded_n=nt * tile, mask_tiles=mask_tiles,
                   fwd_kv_ids=fwd_kv, fwd_pair_ids=fwd_pid,
-                  bwd_q_ids=bwd_q, bwd_pair_ids=bwd_pid)
-
-
-def build_bwd_gather(plan: TilePlan) -> Tuple[np.ndarray, np.ndarray]:
-  """Host-side gather map for the fused two-pass backward.
-
-  The fused kernel sweeps the reverse plan and writes each pair's dq
-  partial tile at flat slot `kj * B + b`. To reduce them by q tile,
-  each forward-plan slot (qi, a) must know which flat reverse slot
-  holds its partial.
-
-  Returns (slot_ids [nq, A] int32, valid [nq, A] float32): padded fwd
-  entries get slot 0 with valid 0 so the outer multiply-reduce ignores
-  them (every reverse slot IS written by the grid — padded reverse
-  entries write exact zeros via the all-zero pad mask tile — so no
-  garbage exists; valid only cancels the pad repeats).
-  """
-  pad = plan.mask_tiles.shape[0] - 1
-  nq, a_fwd = plan.fwd_kv_ids.shape
-  nk, b_bwd = plan.bwd_q_ids.shape
-  pos = {}
-  for kj in range(nk):
-    for b in range(b_bwd):
-      if plan.bwd_pair_ids[kj, b] != pad:
-        pos[(int(plan.bwd_q_ids[kj, b]), kj)] = kj * b_bwd + b
-  slot = np.zeros((nq, a_fwd), np.int32)
-  valid = np.zeros((nq, a_fwd), np.float32)
-  for qi in range(nq):
-    for a in range(a_fwd):
-      if plan.fwd_pair_ids[qi, a] != pad:
-        slot[qi, a] = pos[(qi, int(plan.fwd_kv_ids[qi, a]))]
-        valid[qi, a] = 1.0
-  return slot, valid
-
-
-def _interpret() -> bool:
-  return jax.default_backend() != 'tpu'
-
-
-def _heads_per_block(h: int, tile: int, d: int,
-                     budget_bytes: int = None) -> int:
-  """Largest divisor of h whose per-grid-step VMEM footprint fits.
-
-  Folding heads into the kernel body amortizes the fixed per-grid-step
-  cost, but every fetched block scales with the head group — the dq/dkv
-  kernels keep ~6 double-buffered [hpb, tile, d] f32 tensors plus two
-  scratch accumulators live (observed 18.4MB at hpb=4, tile=512, d=128
-  against the 16MB VMEM)."""
-  if budget_bytes is None:
-    budget_bytes = _HPB_BUDGET_MB * 2 ** 20
-  per_head = tile * d * 4 * 14  # 6 io tensors x2 (pipeline) + 2 scratch
-  hpb = max(1, min(h, budget_bytes // per_head))
-  while h % hpb:
-    hpb -= 1
-  return hpb
-
-
-def _fold(x, hpb):
-  """[B, N, H, d] -> [B*H/hpb, hpb, N, d] (head groups in the body)."""
-  b, n, h, d = x.shape
-  y = x.transpose(0, 2, 1, 3)  # [B, H, N, d]
-  return y.reshape(b * (h // hpb), hpb, n, d)
-
-
-def _unfold(x, b, h):
-  """[B*H/hpb, hpb, N, d] -> [B, N, H, d]."""
-  g, hpb, n, d = x.shape
-  return x.reshape(b, h, n, d).transpose(0, 2, 1, 3)
+                  fwd_counts=fwd_cnt, bwd_q_ids=bwd_q, bwd_pair_ids=bwd_pid,
+                  bwd_counts=bwd_cnt)
 
 
 # ---------------------------------------------------------------------------
-# Kernels. All blocks carry the full head axis; bodies unroll over heads.
+# Kernels. Refs: q/k/v/do are [Np, d] for one (batch, head) or one tile
+# of it; lse/delta are [Np] or [tile]; ids/counts/mask tiles are whole.
 # ---------------------------------------------------------------------------
 
 
-def _fwd_kernel(ids_ref, pids_ref, q_ref, k_ref, v_ref, m_ref,
-                o_ref, lse_ref, acc, row_max, row_sum, *, scale,
-                num_active, num_heads):
-  a = pl.program_id(2)
-
-  @pl.when(a == 0)
-  def _():
-    acc[...] = jnp.zeros_like(acc)
-    row_max[...] = jnp.full_like(row_max, NEG_INF)
-    row_sum[...] = jnp.zeros_like(row_sum)
-
-  mask = m_ref[0] != 0
-
-  for h in range(num_heads):
-    # Matmul operands keep the input dtype: with bf16 inputs the MXU runs
-    # at bf16 rate with f32 accumulation (preferred_element_type), the
-    # same numerics XLA gives a bf16 einsum; with f32 inputs this is
-    # bitwise the old always-f32 path. Softmax math stays f32 on the
-    # accumulated logits.
-    q = q_ref[0, h]
-    k = k_ref[0, h]
-    v = v_ref[0, h]
-
-    logits = jax.lax.dot_general(q, k, (((1,), (1,)), ((), ())),
-                                 preferred_element_type=jnp.float32) * scale
-    logits = jnp.where(mask, logits, NEG_INF)
-
-    m_prev = row_max[h]
-    m_new = jnp.maximum(m_prev, logits.max(-1, keepdims=True))
-    alpha = jnp.exp(m_prev - m_new)
-    # Explicit `where` so fully-masked tiles (and the pad tile) contribute
-    # 0 even while the running max is still NEG_INF.
-    p = jnp.where(mask, jnp.exp(logits - m_new), 0.0)
-    row_max[h] = m_new
-    row_sum[h] = row_sum[h] * alpha + p.sum(-1, keepdims=True)
-    acc[h] = acc[h] * alpha + jax.lax.dot_general(
-        p.astype(v.dtype), v, (((1,), (0,)), ((), ())),
-        preferred_element_type=jnp.float32)
-
-  @pl.when(a == num_active - 1)
-  def _():
-    denom = jnp.maximum(row_sum[...], 1e-30)
-    o_ref[0] = (acc[...] / denom).astype(o_ref.dtype)
-    lse_ref[0] = row_max[...] + jnp.log(denom)
+def _dot(a, b, precision, trans_a=False, trans_b=False):
+  return pl.dot(a, b, trans_a=trans_a, trans_b=trans_b, precision=precision)
 
 
-def _dq_kernel(ids_ref, pids_ref, q_ref, k_ref, v_ref, m_ref, do_ref,
-               lse_ref, delta_ref, dq_ref, dq_acc, *, scale, num_active,
-               num_heads):
-  a = pl.program_id(2)
-
-  @pl.when(a == 0)
-  def _():
-    dq_acc[...] = jnp.zeros_like(dq_acc)
-
-  mask = m_ref[0] != 0
-
-  for h in range(num_heads):
-    # Input-dtype matmul operands (bf16 MXU rate with f32 accumulation
-    # for bf16 models; bitwise-identical f32 path otherwise) — see
-    # _fwd_kernel. exp/ds math stays f32 on the accumulators.
-    q = q_ref[0, h]
-    k = k_ref[0, h]
-    v = v_ref[0, h]
-    do = do_ref[0, h]
-    lse = lse_ref[0, h]      # [t, 1]
-    delta = delta_ref[0, h]  # [t, 1]
-
-    logits = jax.lax.dot_general(q, k, (((1,), (1,)), ((), ())),
-                                 preferred_element_type=jnp.float32) * scale
-    w = jnp.where(mask, jnp.exp(logits - lse), 0.0)
-    dp = jax.lax.dot_general(do, v, (((1,), (1,)), ((), ())),
-                             preferred_element_type=jnp.float32)
-    ds = w * (dp - delta)
-    dq_acc[h] += jax.lax.dot_general(ds.astype(k.dtype), k,
-                                     (((1,), (0,)), ((), ())),
-                                     preferred_element_type=jnp.float32)
-
-  @pl.when(a == num_active - 1)
-  def _():
-    dq_ref[0] = (dq_acc[...] * scale).astype(dq_ref.dtype)
+def _rows(tile_id, tile):
+  return pl.ds(pl.multiple_of(tile_id * tile, tile), tile)
 
 
-def _dkv_kernel(ids_ref, pids_ref, k_ref, v_ref, q_ref, do_ref, lse_ref,
-                delta_ref, m_ref, dk_ref, dv_ref, dk_acc, dv_acc, *,
-                scale, num_active, num_heads):
-  a = pl.program_id(2)
+def _fwd_kernel(kv_ids_ref, pair_ids_ref, counts_ref, mask_ref, q_ref,
+                k_ref, v_ref, o_ref, lse_ref, *, tile, scale, precision):
+  qi = pl.program_id(0)
+  q = q_ref[...]
+  d = q.shape[-1]
 
-  @pl.when(a == 0)
-  def _():
-    dk_acc[...] = jnp.zeros_like(dk_acc)
-    dv_acc[...] = jnp.zeros_like(dv_acc)
+  def body(a, carry):
+    acc, m_prev, l_prev = carry
+    rows = _rows(kv_ids_ref[qi, a], tile)
+    k = k_ref[rows, :]
+    v = v_ref[rows, :]
+    mask = mask_ref[pair_ids_ref[qi, a], :, :] != 0
+    # Logits in log2 units (scale folds in log2(e)): exp2 is the cheap
+    # transcendental on the GPU.
+    s = _dot(q, k, precision, trans_b=True) * scale
+    s = jnp.where(mask, s, NEG_INF)
+    m_new = jnp.maximum(m_prev, s.max(axis=1))
+    alpha = jnp.exp2(m_prev - m_new)
+    # Explicit `where`: a row with nothing allowed so far has m == NEG_INF
+    # and must still contribute 0.
+    p = jnp.where(mask, jnp.exp2(s - m_new[:, None]), 0.0)
+    l_new = l_prev * alpha + p.sum(axis=1)
+    acc = acc * alpha[:, None] + _dot(p.astype(v.dtype), v, precision)
+    return acc, m_new, l_new
 
-  mask = m_ref[0] != 0  # [q-tile rows, kv-tile cols]
-
-  for h in range(num_heads):
-    # Input-dtype matmul operands; see _fwd_kernel.
-    k = k_ref[0, h]
-    v = v_ref[0, h]
-    q = q_ref[0, h]
-    do = do_ref[0, h]
-    lse = lse_ref[0, h]
-    delta = delta_ref[0, h]
-
-    logits = jax.lax.dot_general(q, k, (((1,), (1,)), ((), ())),
-                                 preferred_element_type=jnp.float32) * scale
-    w = jnp.where(mask, jnp.exp(logits - lse), 0.0)      # [tq, tk]
-    dv_acc[h] += jax.lax.dot_general(w.astype(do.dtype), do,
-                                     (((0,), (0,)), ((), ())),
-                                     preferred_element_type=jnp.float32)
-    dp = jax.lax.dot_general(do, v, (((1,), (1,)), ((), ())),
-                             preferred_element_type=jnp.float32)
-    ds = w * (dp - delta)                                # [tq, tk]
-    dk_acc[h] += jax.lax.dot_general(ds.astype(q.dtype), q,
-                                     (((0,), (0,)), ((), ())),
-                                     preferred_element_type=jnp.float32)
-
-  @pl.when(a == num_active - 1)
-  def _():
-    dk_ref[0] = (dk_acc[...] * scale).astype(dk_ref.dtype)
-    dv_ref[0] = dv_acc[...].astype(dv_ref.dtype)
+  init = (jnp.zeros((tile, d), jnp.float32),
+          jnp.full((tile,), NEG_INF, jnp.float32),
+          jnp.zeros((tile,), jnp.float32))
+  acc, m, l = jax.lax.fori_loop(0, counts_ref[qi], body, init)
+  # Fully masked rows (node padding) have l == 0: output 0, and a
+  # logsumexp so low that the backward's probabilities are exactly 0.
+  l = jnp.maximum(l, 1e-30)
+  o_ref[...] = (acc / l[:, None]).astype(o_ref.dtype)
+  lse_ref[...] = m + jnp.log2(l)
 
 
-def _dkvq_kernel(ids_ref, pids_ref, k_ref, v_ref, q_ref, do_ref, lse_ref,
-                 delta_ref, m_ref, dk_ref, dv_ref, dqp_ref, dk_acc,
-                 dv_acc, *, scale, num_active, num_heads):
-  """Fused two-pass backward body: ONE logits/exp recompute per active
-  pair accumulates dk/dv over the kv tile's q list in VMEM AND emits
-  the pair's dq partial tile (reduced by q tile outside the kernel).
-  5 matmuls per pair vs 7 across the split dq/dkv kernels, one
-  q/k/v/do sweep instead of two, one exp/mask VPU pass instead of
-  two."""
-  a = pl.program_id(2)
+def _dq_kernel(kv_ids_ref, pair_ids_ref, counts_ref, mask_ref, q_ref,
+               k_ref, v_ref, do_ref, lse_ref, delta_ref, dq_ref, *, tile,
+               scale, sm_scale, precision):
+  qi = pl.program_id(0)
+  q = q_ref[...]
+  do = do_ref[...]
+  lse = lse_ref[...]
+  delta = delta_ref[...]
 
-  @pl.when(a == 0)
-  def _():
-    dk_acc[...] = jnp.zeros_like(dk_acc)
-    dv_acc[...] = jnp.zeros_like(dv_acc)
+  def body(a, dq):
+    rows = _rows(kv_ids_ref[qi, a], tile)
+    k = k_ref[rows, :]
+    v = v_ref[rows, :]
+    mask = mask_ref[pair_ids_ref[qi, a], :, :] != 0
+    s = _dot(q, k, precision, trans_b=True) * scale
+    p = jnp.where(mask, jnp.exp2(s - lse[:, None]), 0.0)
+    dp = _dot(do, v, precision, trans_b=True)
+    ds = p * (dp - delta[:, None])
+    return dq + _dot(ds.astype(k.dtype), k, precision)
 
-  mask = m_ref[0] != 0  # [q-tile rows, kv-tile cols]
+  dq = jax.lax.fori_loop(0, counts_ref[qi], body,
+                         jnp.zeros(q.shape, jnp.float32))
+  dq_ref[...] = (dq * sm_scale).astype(dq_ref.dtype)
 
-  for h in range(num_heads):
-    # Input-dtype matmul operands; see _fwd_kernel.
-    k = k_ref[0, h]
-    v = v_ref[0, h]
-    q = q_ref[0, h]
-    do = do_ref[0, h]
-    lse = lse_ref[0, h]
-    delta = delta_ref[0, h]
 
-    logits = jax.lax.dot_general(q, k, (((1,), (1,)), ((), ())),
-                                 preferred_element_type=jnp.float32) * scale
-    w = jnp.where(mask, jnp.exp(logits - lse), 0.0)      # [tq, tk]
-    dv_acc[h] += jax.lax.dot_general(w.astype(do.dtype), do,
-                                     (((0,), (0,)), ((), ())),
-                                     preferred_element_type=jnp.float32)
-    dp = jax.lax.dot_general(do, v, (((1,), (1,)), ((), ())),
-                             preferred_element_type=jnp.float32)
-    ds = w * (dp - delta)                                # [tq, tk]
-    dk_acc[h] += jax.lax.dot_general(ds.astype(q.dtype), q,
-                                     (((0,), (0,)), ((), ())),
-                                     preferred_element_type=jnp.float32)
-    # dq partial, written unconditionally every grid step (padded pairs
-    # write exact zeros: their pad mask tile makes w == ds == 0).
-    dqp_ref[0, 0, h] = jax.lax.dot_general(
-        ds.astype(k.dtype), k, (((1,), (0,)), ((), ())),
-        preferred_element_type=jnp.float32).astype(dqp_ref.dtype)
+def _dkv_kernel(q_ids_ref, pair_ids_ref, counts_ref, mask_ref, k_ref,
+                v_ref, q_ref, do_ref, lse_ref, delta_ref, dk_ref, dv_ref, *,
+                tile, scale, sm_scale, precision):
+  kj = pl.program_id(0)
+  k = k_ref[...]
+  v = v_ref[...]
 
-  @pl.when(a == num_active - 1)
-  def _():
-    dk_ref[0] = (dk_acc[...] * scale).astype(dk_ref.dtype)
-    dv_ref[0] = dv_acc[...].astype(dv_ref.dtype)
+  def body(a, carry):
+    dk, dv = carry
+    rows = _rows(q_ids_ref[kj, a], tile)
+    q = q_ref[rows, :]
+    do = do_ref[rows, :]
+    lse = lse_ref[rows]
+    delta = delta_ref[rows]
+    mask = mask_ref[pair_ids_ref[kj, a], :, :] != 0   # [q rows, kv cols]
+    s = _dot(q, k, precision, trans_b=True) * scale
+    p = jnp.where(mask, jnp.exp2(s - lse[:, None]), 0.0)
+    dv = dv + _dot(p.astype(do.dtype), do, precision, trans_a=True)
+    dp = _dot(do, v, precision, trans_b=True)
+    ds = p * (dp - delta[:, None])
+    dk = dk + _dot(ds.astype(q.dtype), q, precision, trans_a=True)
+    return dk, dv
+
+  zeros = jnp.zeros(k.shape, jnp.float32)
+  dk, dv = jax.lax.fori_loop(0, counts_ref[kj], body, (zeros, zeros))
+  dk_ref[...] = (dk * sm_scale).astype(dk_ref.dtype)
+  dv_ref[...] = dv.astype(dv_ref.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -407,240 +246,134 @@ def _dkvq_kernel(ids_ref, pids_ref, k_ref, v_ref, q_ref, do_ref, lse_ref,
 # ---------------------------------------------------------------------------
 
 
-def _compiler_params():
-  if _HPB_BUDGET_MB > 12:
-    # A raised head-fold budget overruns Mosaic's default 16MB scoped
-    # VMEM; lift the cap explicitly (cf. banded_attention's conditional
-    # cap, which is only raised when needed because Mosaic schedules
-    # ~15% worse under a high cap at small folded sizes).
-    return pltpu.CompilerParams(
-        dimension_semantics=('parallel', 'arbitrary', 'arbitrary'),
-        vmem_limit_bytes=100 * 1024 * 1024)
-  return pltpu.CompilerParams(
-      dimension_semantics=('parallel', 'arbitrary', 'arbitrary'))
+def _check(q, tile: int, interpret: bool):
+  if not interpret and jax.default_backend() != 'gpu':
+    raise ValueError(
+        'sparse_banded_attention compiles for the GPU only; on '
+        f'{jax.default_backend()!r} pass interpret=True (tests) or use the '
+        "'triblock' attention backend")
+  d = q.shape[-1]
+  for name, v in (('tile', tile), ('head_dim', d)):
+    if v & (v - 1):
+      raise ValueError(f'{name}={v} must be a power of two (Triton blocks)')
+
+
+def _precision(dtype):
+  return (jax.lax.Precision.HIGHEST if dtype == jnp.float32
+          else jax.lax.Precision.DEFAULT)
+
+
+def _params(tile: int):
+  return plgpu.CompilerParams(num_warps=4 if tile <= 64 else 8,
+                              num_stages=2)
+
+
+def _whole(x):
+  return pl.BlockSpec(x.shape, lambda *_: (0,) * x.ndim)
+
+
+def _tile_spec(t, d):
+  return pl.BlockSpec((None, t, None, d), lambda i, b, h: (b, i, h, 0))
+
+
+def _seq_spec(n, d):
+  return pl.BlockSpec((None, n, None, d), lambda i, b, h: (b, 0, h, 0))
 
 
 def _pad_nodes(x, padded_n):
-  """[G, hpb, N, d] -> [G, hpb, padded_n, d]."""
-  return jnp.pad(x, ((0, 0), (0, 0), (0, padded_n - x.shape[2]), (0, 0)))
+  """[B, N, ...] -> [B, padded_n, ...] (no-op when already padded)."""
+  pad = padded_n - x.shape[1]
+  if pad == 0:
+    return x
+  return jnp.pad(x, ((0, 0), (0, pad)) + ((0, 0),) * (x.ndim - 2))
 
 
-def _fwd_impl(q, k, v, mask_tiles, fwd_ids, fwd_pids, tile, num_active):
+def _fwd_impl(q, k, v, plan_arrays, tile, interpret):
+  mask_tiles, fwd_ids, fwd_pids, fwd_cnt = plan_arrays[:4]
   b, n, h, d = q.shape
-  t = tile
-  hpb = _heads_per_block(h, t, d)
   nq = fwd_ids.shape[0]
-  padded_n = nq * t
-  qf = _pad_nodes(_fold(q, hpb), padded_n)   # [G, hpb, Np, d]
-  kf = _pad_nodes(_fold(k, hpb), padded_n)
-  vf = _pad_nodes(_fold(v, hpb), padded_n)
-  g = qf.shape[0]
-  scale = d ** -0.5
-
-  def self_spec():
-    return pl.BlockSpec((1, hpb, t, d),
-                        lambda bi, qi, a, ids, pids: (bi, 0, qi, 0))
-
-  def by_id():
-    return pl.BlockSpec((1, hpb, t, d),
-                        lambda bi, qi, a, ids, pids: (bi, 0, ids[qi, a], 0))
-
-  grid_spec = pltpu.PrefetchScalarGridSpec(
-      num_scalar_prefetch=2,
-      grid=(g, nq, num_active),
-      in_specs=[
-          self_spec(), by_id(), by_id(),
-          pl.BlockSpec((1, t, t),
-                       lambda bi, qi, a, ids, pids: (pids[qi, a], 0, 0)),
-      ],
-      out_specs=[
-          self_spec(),
-          pl.BlockSpec((1, hpb, t, 1),
-                       lambda bi, qi, a, ids, pids: (bi, 0, qi, 0)),
-      ],
-      scratch_shapes=[
-          pltpu.VMEM((hpb, t, d), jnp.float32),
-          pltpu.VMEM((hpb, t, 1), jnp.float32),
-          pltpu.VMEM((hpb, t, 1), jnp.float32),
-      ],
-  )
+  np_ = nq * tile
+  q, k, v = (_pad_nodes(x, np_) for x in (q, k, v))
   o, lse = pl.pallas_call(
-      functools.partial(_fwd_kernel, scale=scale, num_active=num_active,
-                        num_heads=hpb),
-      grid_spec=grid_spec,
-      out_shape=[
-          jax.ShapeDtypeStruct(qf.shape, q.dtype),
-          jax.ShapeDtypeStruct((g, hpb, padded_n, 1), jnp.float32),
-      ],
-      compiler_params=_compiler_params(),
-      interpret=_interpret(),
-  )(fwd_ids, fwd_pids, qf, kf, vf, mask_tiles)
-  return o, lse, (qf, kf, vf)
+      functools.partial(_fwd_kernel, tile=tile, scale=d ** -0.5 * _LOG2E,
+                        precision=_precision(q.dtype)),
+      grid=(nq, b, h),
+      in_specs=[_whole(fwd_ids), _whole(fwd_pids), _whole(fwd_cnt),
+                _whole(mask_tiles), _tile_spec(tile, d), _seq_spec(np_, d),
+                _seq_spec(np_, d)],
+      out_specs=[_tile_spec(tile, d),
+                 pl.BlockSpec((None, None, tile), lambda i, b, h: (b, h, i))],
+      out_shape=[jax.ShapeDtypeStruct(q.shape, q.dtype),
+                 jax.ShapeDtypeStruct((b, h, np_), jnp.float32)],
+      compiler_params=_params(tile),
+      interpret=interpret,
+      name='sparse_attention_fwd',
+  )(fwd_ids, fwd_pids, fwd_cnt, mask_tiles, q, k, v)
+  return o, lse, (q, k, v)
 
 
-@functools.partial(jax.custom_vjp, nondiff_argnums=(7,))
-def sparse_banded_attention(q, k, v, mask_tiles, fwd_ids, fwd_pids,
-                            bwd_arrays, plan_meta: Tuple[int, int, int]):
+@functools.partial(jax.custom_vjp, nondiff_argnums=(4, 5))
+def sparse_banded_attention(q, k, v, plan_arrays, tile: int,
+                            interpret: bool = False):
   """Block-sparse attention; q/k/v [B, N, H, d] -> [B, N, H, d].
 
-  mask_tiles/ids/bwd_arrays are device arrays from a TilePlan; plan_meta is
-  the static (tile, num_active_fwd, num_active_bwd) triple.
+  plan_arrays is `TilePlan.device_arrays()` of a plan built at `tile`.
+  N may already be padded to the plan's padded_n (padding rows are fully
+  masked and come back as zeros).
   """
-  tile, a_fwd, _ = plan_meta
-  b, n, h, d = q.shape
-  o, _, _ = _fwd_impl(q, k, v, mask_tiles, fwd_ids, fwd_pids, tile, a_fwd)
-  return _unfold(o, b, h)[:, :n]
+  _check(q, tile, interpret)
+  o, _, _ = _fwd_impl(q, k, v, plan_arrays, tile, interpret)
+  return o[:, :q.shape[1]]
 
 
-def _sba_fwd(q, k, v, mask_tiles, fwd_ids, fwd_pids, bwd_arrays, plan_meta):
-  tile, a_fwd, _ = plan_meta
-  b, n, h, d = q.shape
-  o, lse, (qf, kf, vf) = _fwd_impl(q, k, v, mask_tiles, fwd_ids, fwd_pids,
-                                   tile, a_fwd)
-  res = (qf, kf, vf, lse, o, mask_tiles, fwd_ids, fwd_pids, bwd_arrays,
-         q.shape)
-  return _unfold(o, b, h)[:, :n], res
+def _sba_fwd(q, k, v, plan_arrays, tile, interpret):
+  _check(q, tile, interpret)
+  o, lse, qkv = _fwd_impl(q, k, v, plan_arrays, tile, interpret)
+  return o[:, :q.shape[1]], (qkv, o, lse, plan_arrays, q.shape[1])
 
 
-def _sba_bwd(plan_meta, res, dout):
-  tile, a_fwd, a_bwd = plan_meta
-  (qf, kf, vf, lse, of, mask_tiles, fwd_ids, fwd_pids, bwd_arrays,
-   qshape) = res
-  if len(bwd_arrays) == 4:
-    return _sba_bwd_fused(plan_meta, res, dout)
-  bwd_q_ids, bwd_pair_ids = bwd_arrays
-  b, n, h, d = qshape
-  t = tile
-  hpb = qf.shape[1]
-  g = qf.shape[0]
-  padded_n = qf.shape[2]
-  nq = padded_n // t
-  scale = d ** -0.5
-
-  dof = _pad_nodes(_fold(dout, hpb), padded_n)
-  delta = jnp.sum(dof.astype(jnp.float32) * of.astype(jnp.float32),
-                  axis=-1, keepdims=True)  # [B, H, Np, 1]
-
-  self_spec = pl.BlockSpec((1, hpb, t, d),
-                           lambda bi, qi, a, ids, pids: (bi, 0, qi, 0))
-  by_id = pl.BlockSpec(
-      (1, hpb, t, d), lambda bi, qi, a, ids, pids: (bi, 0, ids[qi, a], 0))
-  vec_self = pl.BlockSpec((1, hpb, t, 1),
-                          lambda bi, qi, a, ids, pids: (bi, 0, qi, 0))
-  vec_by_id = pl.BlockSpec(
-      (1, hpb, t, 1), lambda bi, qi, a, ids, pids: (bi, 0, ids[qi, a], 0))
-  mask_by_pid = pl.BlockSpec(
-      (1, t, t), lambda bi, qi, a, ids, pids: (pids[qi, a], 0, 0))
+def _sba_bwd(tile, interpret, res, dout):
+  (q, k, v), o, lse, plan_arrays, n = res
+  mask_tiles, fwd_ids, fwd_pids, fwd_cnt, bwd_ids, bwd_pids, bwd_cnt = (
+      plan_arrays)
+  b, np_, h, d = q.shape
+  nq = np_ // tile
+  do = _pad_nodes(dout, np_)
+  delta = jnp.einsum('bnhd,bnhd->bhn', do.astype(jnp.float32),
+                     o.astype(jnp.float32))
+  kw = dict(tile=tile, scale=d ** -0.5 * _LOG2E, sm_scale=d ** -0.5,
+            precision=_precision(q.dtype))
+  vec_tile = pl.BlockSpec((None, None, tile), lambda i, b, h: (b, h, i))
+  vec_seq = pl.BlockSpec((None, None, np_), lambda i, b, h: (b, h, 0))
 
   dq = pl.pallas_call(
-      functools.partial(_dq_kernel, scale=scale, num_active=a_fwd,
-                        num_heads=hpb),
-      grid_spec=pltpu.PrefetchScalarGridSpec(
-          num_scalar_prefetch=2,
-          grid=(g, nq, a_fwd),
-          in_specs=[self_spec, by_id, by_id, mask_by_pid, self_spec,
-                    vec_self, vec_self],
-          out_specs=self_spec,
-          scratch_shapes=[pltpu.VMEM((hpb, t, d), jnp.float32)],
-      ),
-      out_shape=jax.ShapeDtypeStruct(qf.shape, qf.dtype),
-      compiler_params=_compiler_params(),
-      interpret=_interpret(),
-  )(fwd_ids, fwd_pids, qf, kf, vf, mask_tiles, dof, lse, delta)
+      functools.partial(_dq_kernel, **kw),
+      grid=(nq, b, h),
+      in_specs=[_whole(fwd_ids), _whole(fwd_pids), _whole(fwd_cnt),
+                _whole(mask_tiles), _tile_spec(tile, d), _seq_spec(np_, d),
+                _seq_spec(np_, d), _tile_spec(tile, d), vec_tile, vec_tile],
+      out_specs=_tile_spec(tile, d),
+      out_shape=jax.ShapeDtypeStruct(q.shape, q.dtype),
+      compiler_params=_params(tile),
+      interpret=interpret,
+      name='sparse_attention_dq',
+  )(fwd_ids, fwd_pids, fwd_cnt, mask_tiles, q, k, v, do, lse, delta)
 
   dk, dv = pl.pallas_call(
-      functools.partial(_dkv_kernel, scale=scale, num_active=a_bwd,
-                        num_heads=hpb),
-      grid_spec=pltpu.PrefetchScalarGridSpec(
-          num_scalar_prefetch=2,
-          grid=(g, nq, a_bwd),
-          in_specs=[self_spec, self_spec, by_id, by_id, vec_by_id,
-                    vec_by_id, mask_by_pid],
-          out_specs=[self_spec, self_spec],
-          scratch_shapes=[pltpu.VMEM((hpb, t, d), jnp.float32),
-                          pltpu.VMEM((hpb, t, d), jnp.float32)],
-      ),
-      out_shape=[jax.ShapeDtypeStruct(kf.shape, kf.dtype),
-                 jax.ShapeDtypeStruct(vf.shape, vf.dtype)],
-      compiler_params=_compiler_params(),
-      interpret=_interpret(),
-  )(bwd_q_ids, bwd_pair_ids, kf, vf, qf, dof, lse, delta, mask_tiles)
+      functools.partial(_dkv_kernel, **kw),
+      grid=(nq, b, h),
+      in_specs=[_whole(bwd_ids), _whole(bwd_pids), _whole(bwd_cnt),
+                _whole(mask_tiles), _tile_spec(tile, d), _tile_spec(tile, d),
+                _seq_spec(np_, d), _seq_spec(np_, d), vec_seq, vec_seq],
+      out_specs=[_tile_spec(tile, d), _tile_spec(tile, d)],
+      out_shape=[jax.ShapeDtypeStruct(k.shape, k.dtype),
+                 jax.ShapeDtypeStruct(v.shape, v.dtype)],
+      compiler_params=_params(tile),
+      interpret=interpret,
+      name='sparse_attention_dkv',
+  )(bwd_ids, bwd_pids, bwd_cnt, mask_tiles, k, v, q, do, lse, delta)
 
-  dq = _unfold(dq[:, :, :n], b, h)
-  dk = _unfold(dk[:, :, :n], b, h)
-  dv = _unfold(dv[:, :, :n], b, h)
-  return dq, dk, dv, None, None, None, None
-
-
-def _sba_bwd_fused(plan_meta, res, dout):
-  """Fused two-pass backward: ONE reverse-plan sweep accumulates dk/dv
-  in VMEM (as the classic dkv kernel does) and emits each pair's dq
-  partial tile in input dtype; a host-built gather (`build_bwd_gather`)
-  multiply-reduces the partials by q tile outside the kernel."""
-  tile, a_fwd, a_bwd = plan_meta
-  (qf, kf, vf, lse, of, mask_tiles, fwd_ids, fwd_pids, bwd_arrays,
-   qshape) = res
-  bwd_q_ids, bwd_pair_ids, slot_ids, valid = bwd_arrays
-  b, n, h, d = qshape
-  t = tile
-  hpb = qf.shape[1]
-  g = qf.shape[0]
-  padded_n = qf.shape[2]
-  nq = padded_n // t
-  scale = d ** -0.5
-  num_slots = nq * a_bwd
-
-  dof = _pad_nodes(_fold(dout, hpb), padded_n)
-  delta = jnp.sum(dof.astype(jnp.float32) * of.astype(jnp.float32),
-                  axis=-1, keepdims=True)
-
-  self_spec = pl.BlockSpec((1, hpb, t, d),
-                           lambda bi, kj, a, ids, pids: (bi, 0, kj, 0))
-  by_id = pl.BlockSpec(
-      (1, hpb, t, d), lambda bi, kj, a, ids, pids: (bi, 0, ids[kj, a], 0))
-  vec_by_id = pl.BlockSpec(
-      (1, hpb, t, 1), lambda bi, kj, a, ids, pids: (bi, 0, ids[kj, a], 0))
-  mask_by_pid = pl.BlockSpec(
-      (1, t, t), lambda bi, kj, a, ids, pids: (pids[kj, a], 0, 0))
-  partial_spec = pl.BlockSpec(
-      (1, 1, hpb, t, d),
-      lambda bi, kj, a, ids, pids: (bi, kj * a_bwd + a, 0, 0, 0))
-
-  dk, dv, dqp = pl.pallas_call(
-      functools.partial(_dkvq_kernel, scale=scale, num_active=a_bwd,
-                        num_heads=hpb),
-      grid_spec=pltpu.PrefetchScalarGridSpec(
-          num_scalar_prefetch=2,
-          grid=(g, nq, a_bwd),
-          in_specs=[self_spec, self_spec, by_id, by_id, vec_by_id,
-                    vec_by_id, mask_by_pid],
-          out_specs=[self_spec, self_spec, partial_spec],
-          scratch_shapes=[pltpu.VMEM((hpb, t, d), jnp.float32),
-                          pltpu.VMEM((hpb, t, d), jnp.float32)],
-      ),
-      out_shape=[
-          jax.ShapeDtypeStruct(kf.shape, kf.dtype),
-          jax.ShapeDtypeStruct(vf.shape, vf.dtype),
-          jax.ShapeDtypeStruct((g, num_slots, hpb, t, d), qf.dtype),
-      ],
-      compiler_params=_compiler_params(),
-      interpret=_interpret(),
-  )(bwd_q_ids, bwd_pair_ids, kf, vf, qf, dof, lse, delta, mask_tiles)
-
-  # Gather each q tile's partials out of reverse-slot order and
-  # multiply-reduce in f32 (valid zeroes the padded fwd entries, which
-  # alias slot 0; every reverse slot IS written — padded reverse pairs
-  # write exact zeros via the all-zero pad mask tile).
-  gathered = dqp[:, slot_ids]                # [g, nq, A, hpb, t, d]
-  w = valid[None, :, :, None, None, None]
-  dq = (gathered * w).sum(axis=2) * scale    # f32 via the w promotion
-  dq = dq.transpose(0, 2, 1, 3, 4).reshape(g, hpb, padded_n, d)
-  dq = dq.astype(qf.dtype)
-
-  dq = _unfold(dq[:, :, :n], b, h)
-  dk = _unfold(dk[:, :, :n], b, h)
-  dv = _unfold(dv[:, :, :n], b, h)
-  return dq, dk, dv, None, None, None, None
+  return dq[:, :n], dk[:, :n], dv[:, :n], None
 
 
 sparse_banded_attention.defvjp(_sba_fwd, _sba_bwd)

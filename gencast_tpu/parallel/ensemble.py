@@ -10,7 +10,7 @@ from __future__ import annotations
 
 from typing import Optional
 
-import flax.nnx as nnx
+from gencast_tpu.nn import nnx
 import jax
 import jax.numpy as jnp
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P

@@ -9,17 +9,17 @@ The framework uses one logical mesh with three axes:
   activating the P(None, 'model') annotations carried by every kernel.
 
 Gradient reduction across 'data'/'ensemble' is implicit: jit over the mesh
-inserts the collectives (psum over ICI) from the sharding specs — no
-hand-written NCCL/pmean as in torch-style frameworks.
+inserts the collectives from the sharding specs, and XLA hands them to
+NCCL over NVLink. The cards of a host reach each other all to all at one
+rate, so the mesh is a plain reshape of the device list.
 """
 
 from __future__ import annotations
 
 
-import flax.nnx as nnx
+from gencast_tpu.nn import nnx
 import jax
 import numpy as np
-from jax.experimental import mesh_utils
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 AXES = ('ensemble', 'data', 'model')
@@ -34,8 +34,7 @@ def make_mesh(ensemble: int = 1, data: int = 1, model: int = 1,
   if n != len(devices):
     raise ValueError(f'mesh {ensemble}x{data}x{model}={n} != '
                      f'{len(devices)} devices')
-  dev_array = mesh_utils.create_device_mesh((ensemble, data, model),
-                                            devices=devices)
+  dev_array = np.asarray(devices).reshape(ensemble, data, model)
   return Mesh(dev_array, AXES)
 
 
@@ -46,7 +45,6 @@ def shard_model(model: nnx.Module, mesh: Mesh) -> None:
   other state (and parameters without annotations) replicates.
   """
   state = nnx.state(model)
-  pspecs = nnx.get_partition_spec(state)
 
   def sanitize(x, spec) -> P:
     """Drop axis assignments whose size doesn't divide the dim (e.g. a
@@ -63,12 +61,15 @@ def shard_model(model: nnx.Module, mesh: Mesh) -> None:
       dims.append(axis if x.shape[i] % size == 0 else None)
     return P(*dims)
 
-  def place(x, spec):
+  def place(var):
+    x = var.value
     if not isinstance(x, (jax.Array, np.ndarray)):
-      return x
-    return jax.device_put(x, NamedSharding(mesh, sanitize(x, spec)))
+      return var
+    return var.replace(
+        jax.device_put(x, NamedSharding(mesh, sanitize(x, var.sharding))))
 
-  sharded = jax.tree.map(place, state, pspecs)
+  sharded = jax.tree.map(place, state, is_leaf=lambda v: isinstance(
+      v, nnx.Variable))
   nnx.update(model, sharded)
 
 

@@ -11,7 +11,7 @@ from __future__ import annotations
 
 from typing import Callable, Optional
 
-import flax.nnx as nnx
+from gencast_tpu.nn import nnx
 import jax
 import jax.numpy as jnp
 
@@ -209,9 +209,8 @@ def chunked_rollout(model: nnx.Module,
     tt = teacher_targets[sl] if teacher_targets is not None else None
     preds, window = run_chunk(state, window, forcings[sl], step_keys[sl], tt)
     if not overlap_offload:
-      # Serialize device compute and host copies: some remote TPU
-      # runtimes are unstable under a large device_get concurrent with
-      # a running program.
+      # Serialize device compute and host copies (no device_get while a
+      # program runs).
       chunks.append(jax.device_get(preds))
       continue
     if pending is not None:

@@ -15,7 +15,7 @@ from __future__ import annotations
 import os
 from typing import Optional
 
-import flax.nnx as nnx
+from gencast_tpu.nn import nnx
 import orbax.checkpoint as ocp
 
 from gencast_tpu.nn.variables import StaticData

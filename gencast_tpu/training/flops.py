@@ -29,7 +29,7 @@ compiled forward and against the preset configs.
 
 Reference role: the reference publishes no FLOP counts or utilization
 numbers anywhere (SURVEY.md section 6); this module is the absolute
-performance yardstick the round-4 verdict asked for.
+performance yardstick.
 """
 
 from __future__ import annotations
@@ -39,13 +39,23 @@ from typing import Optional
 
 import numpy as np
 
-# Peak dense matmul throughput of one TPU v5e (v5 lite) chip, bf16
-# inputs / f32 accumulation (public spec: 197 TFLOP/s bf16, 394 TOPS
-# int8). MFU is always reported against the bf16 peak, including for
-# f32-compute configs — their true utilization of the (slower) f32 MXU
-# path is higher than the printed number, which keeps the metric a
-# single conservative yardstick across presets.
-V5E_PEAK_FLOPS = 197e12
+# Published peaks of one accelerator, keyed by JAX's `device_kind`:
+# dense bf16 tensor-core FLOP/s and device-memory bytes/s (NVIDIA H100
+# SXM5 data sheet, at the 700 W power limit). MFU is always reported
+# against the bf16 peak, including for f32-compute configs, which keeps
+# the metric one conservative yardstick across presets.
+PEAKS = {
+    'NVIDIA H100 80GB HBM3': {'bf16_flops': 989e12, 'hbm_bytes': 3.35e12},
+}
+
+
+def peak(device_kind: str) -> dict:
+  """The PEAKS entry of a device kind; an unknown device is an error."""
+  try:
+    return PEAKS[device_kind]
+  except KeyError:
+    raise KeyError(f'no published peak for device kind {device_kind!r}; '
+                   f'known: {sorted(PEAKS)}') from None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -231,7 +241,7 @@ def sampler_step_flops(forward: Flops, num_noise_levels: int) -> Flops:
   return forward.scaled(2.0 * num_noise_levels - 1.0)
 
 
-def mfu(flops_total: float, seconds: float,
-        peak: float = V5E_PEAK_FLOPS) -> float:
-  """Model-FLOPs utilization: achieved model FLOP/s over the chip peak."""
-  return flops_total / seconds / peak
+def mfu(flops_total: float, seconds: float, device_kind: str) -> float:
+  """Model-FLOPs utilization: achieved model FLOP/s over the bf16 peak
+  of `device_kind` (see PEAKS)."""
+  return flops_total / seconds / peak(device_kind)['bf16_flops']

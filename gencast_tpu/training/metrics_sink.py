@@ -3,7 +3,7 @@
 Role of the reference's wandb scalar logging
 (training/train_helpers.py:366-391, training/train.py:336-403), with a
 dependency-free JSONL sink as the primary path (wandb is not installed in
-air-gapped TPU environments; the flag degrades to a warning).
+air-gapped environments; the flag degrades to a warning).
 """
 
 from __future__ import annotations

@@ -8,7 +8,7 @@ Examples:
   # Smoke-train a tiny model on synthetic data (CPU-friendly):
   python -m gencast_tpu.training.train --preset tiny --steps 20 --data synthetic
 
-  # Nano-GenCast (reference demo config) on one TPU chip:
+  # Nano-GenCast (reference demo config) on one GPU:
   python -m gencast_tpu.training.train --preset nano --steps 30000 \
       --data /path/to/era5_npz --ckpt_dir /tmp/ckpt
 """
@@ -25,7 +25,7 @@ import numpy as np
 
 
 def parse_args(argv=None):
-  p = argparse.ArgumentParser(description='Train GenCast (TPU-native).')
+  p = argparse.ArgumentParser(description='Train GenCast or GraphCast.')
   p.add_argument('--model', default='gencast',
                  choices=['gencast', 'graphcast'])
   p.add_argument('--preset', default='nano',
@@ -38,8 +38,7 @@ def parse_args(argv=None):
                       '37-level GraphCast configuration)')
   p.add_argument('--remat_group', type=int, default=1,
                  help='graphcast only: nested-checkpoint group size for '
-                      'the processor MP steps (hierarchical remat; 4 '
-                      'fits the 37-level 0.25deg config on a 16GB chip)')
+                      'the processor MP steps (hierarchical remat)')
   p.add_argument('--data', default='synthetic',
                  help="'synthetic' or a directory of era5 npz shards")
   p.add_argument('--steps', type=int, default=30000)
@@ -55,8 +54,7 @@ def parse_args(argv=None):
   p.add_argument('--num_heads', type=int, default=None)
   p.add_argument('--attention_k_hop', type=int, default=None)
   p.add_argument('--attention_type', default=None,
-                 choices=[None, 'triblock', 'dense', 'pallas',
-                          'triblock_pallas'])
+                 choices=[None, 'auto', 'triblock', 'dense', 'pallas'])
   # Wrappers.
   p.add_argument('--no_normalization', action='store_true',
                  help='skip the InputsAndResiduals wrapper')
@@ -97,23 +95,22 @@ def parse_args(argv=None):
                  help='batches kept in flight by the background '
                       'host->device pipeline (data/prefetch.py, the '
                       'reference Grain role); 0 disables. Default: 2 on '
-                      'multi-core hosts, 0 on <=2 cores (the A/B in '
-                      'tools/ab_prefetch_onedeg.py measured the thread '
-                      'as pure contention on a single-core host)')
+                      'multi-core hosts, 0 on <=2 cores, where the thread '
+                      'would compete with the step loop for the core')
   p.add_argument('--data_workers', type=int, default=0,
                  help='out-of-process batch-packing workers '
                       '(data/workers.py, the scalable half of the '
                       'reference Grain role); 0 packs in-process. Output '
                       'batches are bitwise identical either way. Worth it '
                       'only on multi-core hosts where packing outruns one '
-                      'core (e.g. 0.25-degree file reads on a TPU-VM)')
+                      'core (e.g. 0.25-degree file reads)')
   # Parallelism (data axis; model/ensemble used by larger deployments).
   p.add_argument('--dp', type=int, default=1)
   p.add_argument('--mp', type=int, default=1)
-  # Multi-host (one process per TPU-VM host). On a real pod
-  # jax.distributed.initialize() discovers the coordinator from the TPU
-  # environment; the explicit flags are the CPU stand-in used by
-  # tests/test_multihost.py.
+  # Multi-host (one process per host). Under a cluster manager (SLURM,
+  # Open MPI, ...) jax.distributed.initialize() discovers the coordinator;
+  # elsewhere pass --coordinator host:port, --num_processes and
+  # --process_id (tests/test_multihost.py drives that with a CPU stand-in).
   p.add_argument('--multihost', action='store_true',
                  help='initialize jax.distributed (one process per host); '
                       'the mesh spans all hosts')
@@ -155,12 +152,13 @@ def _run_fused(args, source, wrapped, optimizer, manager, sink, start_step,
   shapes as the per-step AR iterator) and each scan step trains the
   multi-step autoregressive loss.
   """
-  import flax.nnx as nnx
+  from gencast_tpu.nn import nnx
   import jax
   import jax.numpy as jnp
 
-  from gencast_tpu.training import checkpoint as ckpt_lib
   from gencast_tpu.training import steps as steps_lib
+  if manager is not None:
+    from gencast_tpu.training import checkpoint as ckpt_lib
 
   k_call = args.steps_per_call
   ar = ar_steps > 1
@@ -190,6 +188,7 @@ def _run_fused(args, source, wrapped, optimizer, manager, sink, start_step,
   perm: list = []
   key = jax.random.PRNGKey(args.seed)
   losses_acc = []
+  logged = []
   steps_acc = 0
   t_log = time.time()
   step = start_step
@@ -215,6 +214,7 @@ def _run_fused(args, source, wrapped, optimizer, manager, sink, start_step,
       print(f'[train] step {step}/{args.steps} loss={mean_loss:.4f} '
             f'{steps_acc / dt:.2f} steps/s')
       sink.log('train', step, loss=mean_loss, steps_per_sec=steps_acc / dt)
+      logged.append(mean_loss)
       losses_acc, steps_acc, t_log = [], 0, time.time()
 
     if manager is not None and crossed(args.save_every, prev, step):
@@ -228,6 +228,7 @@ def _run_fused(args, source, wrapped, optimizer, manager, sink, start_step,
     print(f'[train] final checkpoint at {args.ckpt_dir}')
   sink.close()
   print('[train] done')
+  return {'model': wrapped, 'optimizer': optimizer, 'losses': logged}
 
 
 def main(argv=None):
@@ -246,7 +247,7 @@ def main(argv=None):
     from tools.xla_flags import force_host_device_count
     force_host_device_count(args.cpu)
 
-  import flax.nnx as nnx
+  from gencast_tpu.nn import nnx
   import jax
   import jax.numpy as jnp
 
@@ -265,7 +266,6 @@ def main(argv=None):
   from gencast_tpu.data import sources
   from gencast_tpu.models import wrappers
   from gencast_tpu.parallel import meshes
-  from gencast_tpu.training import checkpoint as ckpt_lib
   from gencast_tpu.training import steps as steps_lib
   from gencast_tpu import rollout as rollout_lib
 
@@ -338,7 +338,8 @@ def main(argv=None):
     if args.batch_size % args.dp:
       raise SystemExit(f'[train] batch_size ({args.batch_size}) must be '
                        f'divisible by dp ({args.dp})')
-    mesh = meshes.make_mesh(1, args.dp, args.mp)
+    mesh = meshes.make_mesh(1, args.dp, args.mp,
+                            devices=jax.devices()[:args.dp * args.mp])
     meshes.shard_model(wrapped, mesh)
     print(f'[train] mesh: data={args.dp} model={args.mp}')
 
@@ -357,6 +358,7 @@ def main(argv=None):
   start_step = 0
   manager = None
   if args.ckpt_dir:
+    from gencast_tpu.training import checkpoint as ckpt_lib
     manager = ckpt_lib.create_manager(args.ckpt_dir)
     if ckpt_lib.latest_step(manager) is not None:
       start_step = ckpt_lib.restore(manager, wrapped, optimizer) + 1
@@ -411,9 +413,8 @@ def main(argv=None):
     print(f'[train] --data_workers is ignored in {mode} mode; '
           f'batches are packed in-process')
   if fused:
-    _run_fused(args, source, wrapped, optimizer, manager, sink, start_step,
-               ar_steps)
-    return
+    return _run_fused(args, source, wrapped, optimizer, manager, sink,
+                      start_step, ar_steps)
 
   # Donated-state step for memory-bound specs (ModelSpec.use_donated_step;
   # on for the 0.25deg preset).
@@ -477,10 +478,8 @@ def main(argv=None):
 
   if mesh is not None and jax.process_count() > 1 and ar_steps == 1:
     # Multi-host input sharding: every process draws the same global
-    # permutation but PACKS only the batch rows its own devices hold —
-    # the host-side packing cost per host divides by the host count
-    # (packing the full global batch on all hosts was measured at
-    # ~300 ms/step/host at 1 degree).
+    # permutation but PACKS only the batch rows its own devices hold, so
+    # the host-side packing cost per host divides by the host count.
     local_rows, local_blocks = meshes.local_batch_plan(mesh,
                                                        args.batch_size)
     it = make_iterator(rows=local_rows)
@@ -523,6 +522,7 @@ def main(argv=None):
 
   t_log = time.time()
   losses = []
+  logged = []  # the mean losses printed at each log step
   try:
     for step in range(start_step, args.steps):
       if args.profile_dir and step == 10:
@@ -555,6 +555,7 @@ def main(argv=None):
               f'loss={mean_loss:.4f} {args.log_every / dt:.2f} steps/s')
         sink.log('train', step + 1, loss=mean_loss,
                  steps_per_sec=args.log_every / dt)
+        logged.append(mean_loss)
         losses = []
         t_log = time.time()
 
@@ -603,6 +604,7 @@ def main(argv=None):
     print(f'[train] final checkpoint at {args.ckpt_dir}')
   sink.close()
   print('[train] done')
+  return {'model': wrapped, 'optimizer': optimizer, 'losses': logged}
 
 
 if __name__ == '__main__':

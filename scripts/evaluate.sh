@@ -1,6 +1,6 @@
 #!/usr/bin/env bash
-# 30-step rollout evaluation with an 8-member ensemble (the TPU equivalent
-# of the reference's scripts/evaluation.sh).
+# 30-step rollout evaluation with an 8-member ensemble (the counterpart of
+# the reference's scripts/evaluation.sh).
 set -euo pipefail
 
 DATA_DIR=${DATA_DIR:-/data/era5}

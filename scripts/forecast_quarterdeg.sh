@@ -1,15 +1,12 @@
 #!/usr/bin/env bash
-# One-command 0.25-degree 30-step (7.5-day) GenCast forecast on a single
-# 16GB TPU chip, using the memory-safe recipe proven on real hardware
-# (CLAUDE.md "0.25-deg rollout" notes, 2026-08-16: 52.3 s/forecast-step,
-# 10.47 GB offloaded to host):
+# One-command 0.25-degree 30-step (7.5-day) GenCast forecast on one GPU,
+# with the memory-safe recipe:
 #   * bf16 compute (f32 master weights)  -> --bf16 (preset default)
 #   * NaNCleaner on sea_surface_temperature (NaNs reintroduced over land,
 #     reference semantics)               -> --clean_sst_nans
 #   * chunked rollout, one step per compiled chunk, predictions copied to
 #     host after each chunk              -> --chunk_size 1
-#   * device compute and host copies serialized (large device_get
-#     concurrent with a running program crashes some remote TPU relays)
+#   * device compute and host copies serialized
 #                                        -> --no_overlap_offload
 #
 # Usage: scripts/forecast_quarterdeg.sh DATA_DIR CKPT_DIR [OUT_DIR] [STEPS]

@@ -1,5 +1,5 @@
 #!/usr/bin/env bash
-# Train nano-GenCast on one TPU VM (the TPU equivalent of the reference's
+# Train nano-GenCast on one GPU (the counterpart of the reference's
 # scripts/train.sh SLURM job).
 set -euo pipefail
 

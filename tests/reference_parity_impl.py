@@ -37,6 +37,7 @@ from common import deep_typed_graph_net as ref_dtgn  # noqa: E402
 from gencast import sparse_transformer as ref_st  # noqa: E402
 
 from gencast_tpu.nn import mlp as my_mlp  # noqa: E402
+from gencast_tpu.nn import nnx as gnnx  # noqa: E402
 from gencast_tpu.nn import gnn as my_gnn  # noqa: E402
 from gencast_tpu.nn import transformer as my_tr  # noqa: E402
 from gencast_tpu.training import translate  # noqa: E402
@@ -48,11 +49,13 @@ def _pure(module):
 
 
 def _load(module, pure):
-  state = nnx.state(module)
-  target = nnx.to_pure_dict(state)
+  """Loads a translated pure dict into one of OUR modules (the in-repo
+  module system; the reference's modules are flax's)."""
+  state = gnnx.state(module)
+  target = gnnx.to_pure_dict(state)
   translate.merge_into(target, pure)
-  nnx.replace_by_pure_dict(state, target)
-  nnx.update(module, state)
+  gnnx.replace_by_pure_dict(state, target)
+  gnnx.update(module, state)
 
 
 def test_cond_mlp_parity():

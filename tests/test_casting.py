@@ -1,6 +1,6 @@
 """Mixed-precision wrapper tests."""
 
-import flax.nnx as nnx
+from gencast_tpu.nn import nnx
 import jax
 import jax.numpy as jnp
 import numpy as np

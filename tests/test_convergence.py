@@ -13,7 +13,7 @@ import pytest
 
 import dataclasses
 
-import flax.nnx as nnx
+from gencast_tpu.nn import nnx
 import jax
 import jax.numpy as jnp
 import numpy as np

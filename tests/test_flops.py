@@ -10,7 +10,7 @@
    wrong MFU in the next bench pass.
 """
 
-import flax.nnx as nnx
+from gencast_tpu.nn import nnx
 import jax
 import jax.numpy as jnp
 import pytest
@@ -85,8 +85,8 @@ def test_graphcast_forward_matches_xla_cost_analysis():
 def test_nano_forward_flops_pinned():
   """Pins the formula to the nano config: a change to either (task
   channels, mesh, k-hop mask, transformer dims, or the formula itself)
-  must be a conscious decision, because every MFU number in BENCH_r*
-  derives from this."""
+  must be a conscious decision, because every MFU number derives from
+  this."""
   spec = configs.NANO
   statics = configs.build_statics(spec)
   fwd = F.denoiser_forward_flops(spec, statics)
@@ -97,6 +97,21 @@ def test_nano_forward_flops_pinned():
   assert F.train_step_flops(fwd).total == pytest.approx(3 * fwd.total)
   assert F.sampler_step_flops(fwd, 20).total == pytest.approx(
       39 * fwd.total)
-  # MFU denominator sanity: nano train at the measured 16.1 ms is ~15%
-  # of the v5e bf16 peak; anything >=100% means broken accounting.
-  assert 0.05 < F.mfu(F.train_step_flops(fwd).total, 0.0161) < 0.5
+  # MFU is model FLOP/s over the card's bf16 peak: the nano train step's
+  # FLOPs in one second are that many FLOP/s.
+  assert F.mfu(F.train_step_flops(fwd).total, 1.0,
+               'NVIDIA H100 80GB HBM3') == pytest.approx(
+                   3 * fwd.total / 989e12)
+
+
+def test_peak_table_resolves_the_h100():
+  p = F.peak('NVIDIA H100 80GB HBM3')
+  assert p == {'bf16_flops': 989e12, 'hbm_bytes': 3.35e12}
+
+
+@pytest.mark.parametrize('kind', ['cpu', 'NVIDIA A100-SXM4-80GB', ''])
+def test_peak_table_refuses_unknown_devices(kind):
+  with pytest.raises(KeyError, match='no published peak'):
+    F.peak(kind)
+  with pytest.raises(KeyError):
+    F.mfu(1e12, 1.0, kind)

@@ -2,7 +2,7 @@
 
 import dataclasses
 
-import flax.nnx as nnx
+from gencast_tpu.nn import nnx
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -260,7 +260,7 @@ def test_sampler_matches_reference_loop_formulation(setup):
 @pytest.mark.slow
 def test_autoregressive_loss_gencast(setup):
   """Multi-step AR fine-tuning on a wrapped GenCast stack: finite loss and
-  gradients through the whole 2-step rollout (VERDICT round-1 item 5)."""
+  gradients through the whole 2-step rollout."""
   from gencast_tpu import rollout as R
   statics, model = setup
   stats = L.Stats.unit(
@@ -328,7 +328,8 @@ def test_quarter_deg_spec_memory_plan():
   assert spec.noise_basis_dtype == 'bfloat16'  # 750MB Legendre table
   assert spec.use_gradient_checkpointing      # transformer remat
   assert spec.remat_policy == 'save_attention'  # keep attention residuals
-  assert spec.attention_type == 'pallas'      # no dense triblock at splits=6
+  # The block-sparse kernel on the GPU: no dense triblock at splits=6.
+  assert configs.attention_type_for(spec, platform='gpu') == 'pallas'
 
 
 def test_functional_train_step_matches_nnx(setup):

@@ -32,11 +32,10 @@ def _free_port() -> int:
 
 
 # XLA's gloo CPU collectives give the cross-process key-value handshake a
-# fixed 30s deadline. On this ONE-CORE host the first attempt can blow it
-# through no fault of the code under test: pytest + two children share the
-# core, and whichever child wins the core compiles its sharded program and
-# reaches the first collective >30s before the loser (observed 2026-08-20
-# in a full-tier run; the same test passes alone in 80s). Retrying once is
+# fixed 30s deadline. On a host with few cores the first attempt can blow
+# it through no fault of the code under test: pytest + two children share
+# the cores, and whichever child gets them compiles its sharded program and
+# reaches the first collective >30s before the other. Retrying once is
 # sound because the persistent compile cache is warm on attempt 2, which
 # removes the skew — and a REAL cross-process bug fails both attempts.
 _GLOO_FLAKE = 'Gloo context initialization failed'
@@ -100,7 +99,7 @@ def test_pod_forecast_script_two_process(tmp_path):
   two real processes and checks member-stream invariance: the same member
   keys must give the same forecast regardless of process count, mesh
   model-factor, or padding chunks (member 3 is padding here: 3 members on
-  an ensemble=2 axis). This is the deliverable the v5e-64 north star runs.
+  an ensemble=2 axis).
   """
   env = {k: v for k, v in os.environ.items() if k != 'XLA_FLAGS'}
   common = [sys.executable, POD_SCRIPT, '--preset', 'tiny', '--cpu', '2',

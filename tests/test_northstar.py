@@ -1,17 +1,12 @@
-"""North-star topology rehearsal (round-5 VERDICT item 1).
+"""Large-topology rehearsal of the ensemble forecast.
 
-The BASELINE.md claim is "50 members on v5e-64 in <2 min"; until round 5
-nothing above 16 devices had ever executed, and the pod CLI had never run
-50 members with padding to the ensemble multiple. These tests execute the
-REAL topology virtually: 64 forced CPU devices, the (16,2,2) dryrun mesh
-factors, and the pod forecast CLI at members=50 (ensemble=32 x model=2,
-padded to 64 in two chunks) — with a small-topology oracle proving the
-member streams are invariant to the device count and chunking.
-
-Wall times on this 1-core host (2026-08-19): pod CLI 64dev/50members
-~145s; dryrun_multichip(64) ~120s; dryrun_multichip(32) ~195s (the
-32-row is exercised by a documented drive, `python __graft_entry__.py
-32`, to keep the slow tier bounded).
+These tests execute a 64-device topology virtually: 64 forced CPU
+devices, the (16,2,2) dryrun mesh factors, and the pod forecast CLI at
+members=50 (ensemble=32 x model=2, padded to 64 in two chunks) — with a
+small-topology oracle proving the member streams are invariant to the
+device count and chunking. The 32-device row is exercised by a
+documented drive, `python __graft_entry__.py 32`, to keep the slow tier
+bounded.
 
 Reference role: common/rollout.py:78-202 (the pmap ensemble helper this
 framework's sharded rollout replaces).
@@ -40,13 +35,12 @@ def _run_pod(out, cpu, members, extra=()):
 
 @pytest.mark.slow
 def test_pod_cli_at_northstar_topology(tmp_path):
-  """64 virtual devices, 50 members: the v5e-64 north-star shape.
+  """64 virtual devices, 50 members.
 
   The CLI factors 64 into ensemble=32 x model=2 and pads 50 members to
   64 (two chunks of 32); every requested member must come back finite,
   and members computed at this topology must match the same members from
-  a 2-device run (chunking/padding/device-count invariance — the
-  property that makes the single-chip bench numbers scale to the pod).
+  a 2-device run (chunking/padding/device-count invariance).
   """
   big = str(tmp_path / 'ns64.npz')
   out = _run_pod(big, cpu=64, members=50)

@@ -1,6 +1,6 @@
 """Tests for mesh/sharding/ensemble utilities on the virtual device mesh."""
 
-import flax.nnx as nnx
+from gencast_tpu.nn import nnx
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -14,6 +14,17 @@ def test_make_mesh_and_shardings():
   assert mesh.shape == {'ensemble': 2, 'data': 2, 'model': 2}
   with pytest.raises(ValueError):
     meshes.make_mesh(3, 1, 1)  # 3 != 8 devices
+
+
+@pytest.mark.parametrize('shape', [(4, 1, 1), (1, 4, 1), (2, 1, 2)])
+def test_make_mesh_on_four_of_eight_devices(shape):
+  devices = jax.devices()[2:6]
+  mesh = meshes.make_mesh(*shape, devices=devices)
+  assert mesh.devices.shape == shape
+  # A plain reshape: device order is the list's order.
+  assert list(mesh.devices.ravel()) == devices
+  x = jax.device_put(jnp.arange(8.0), meshes.batch_sharding(mesh))
+  assert x.sharding.device_set == set(devices)
 
 
 def test_shard_model_honors_annotations_and_falls_back():
@@ -78,7 +89,7 @@ def test_ensemble_rollout_end_to_end():
   from gencast_tpu.models.denoiser import DenoiserConfig
   from gencast_tpu.nn.transformer import TransformerConfig
   import dataclasses
-  import flax.nnx as nnx
+  from gencast_tpu.nn import nnx
 
   lat = np.arange(-90.0, 90.0 + 1e-6, 30.0, dtype=np.float32)
   lon = np.arange(0.0, 360.0, 30.0, dtype=np.float32)

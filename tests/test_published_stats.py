@@ -1,4 +1,4 @@
-"""Published normalization-stats ingestion (round-5 VERDICT item 3).
+"""Published normalization-stats ingestion.
 
 The reference loads DeepMind's gencast_stats_{mean,stddev,diffs_stddev}
 _by_level.nc with xarray (training/train_helpers.py:190-211); our loader

@@ -1,6 +1,6 @@
 """Tests for the fused autoregressive rollout."""
 
-import flax.nnx as nnx
+from gencast_tpu.nn import nnx
 import jax
 import jax.numpy as jnp
 import numpy as np

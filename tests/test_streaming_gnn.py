@@ -1,6 +1,6 @@
 """Streamed (chunked) edge processing must match the dense GNN path."""
 
-import flax.nnx as nnx
+from gencast_tpu.nn import nnx
 import jax
 import jax.numpy as jnp
 import numpy as np

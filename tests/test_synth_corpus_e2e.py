@@ -1,8 +1,8 @@
 """Real-data-path loop: synthesized ERA5 NetCDF corpus -> train ->
 checkpoint -> evaluate, all through Era5NetCDFSource (the h5py reader).
 
-Round-3 verdict: the NetCDF path was unit-tested for loading but no
-train->checkpoint->evaluate drive ever went through it. The corpus is
+The NetCDF path is unit-tested for loading; this drives train ->
+checkpoint -> evaluate through it end to end. The corpus is
 generated by tools/synth_era5.py in the exact CDS-download layout
 (reference training/era5_dataset.py:43-345), including descending
 latitude, int16-packed temperature, NaN SST and cumulative precip.

@@ -6,7 +6,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import flax.nnx as nnx
+from gencast_tpu.nn import nnx
 from scipy import sparse
 
 from gencast_tpu.graph import compiler, icosahedron
@@ -117,7 +117,8 @@ def test_save_attention_remat_matches_full(statics, attention_type):
   def build(policy):
     cfg = dataclasses.replace(_cfg(attention_type),
                               use_gradient_checkpointing=True,
-                              remat_policy=policy)
+                              remat_policy=policy,
+                              interpret=attention_type == 'pallas')
     mask = statics.attention_mask
     kw = {}
     if attention_type == 'pallas':
@@ -129,7 +130,7 @@ def test_save_attention_remat_matches_full(statics, attention_type):
     from gencast_tpu.graph.compiler import khop_mask_csr
     csr = khop_mask_csr(st.mesh_edges.senders, st.mesh_edges.receivers,
                         st.num_mesh_nodes, st.attention_k_hop)
-    return sparse_attention.build_tile_plan(csr, tile=128)
+    return sparse_attention.build_tile_plan(csr, tile=64)
 
   outs, grads = [], []
   for policy in ('full', 'save_attention'):
@@ -143,30 +144,3 @@ def test_save_attention_remat_matches_full(statics, attention_type):
   for ga, gb in zip(grads[0], grads[1]):
     np.testing.assert_allclose(np.asarray(ga), np.asarray(gb),
                                atol=1e-5, rtol=1e-4)
-
-
-def test_triblock_pallas_matches_triblock(statics):
-  """The fused Pallas tri-block kernel is numerics-equivalent to the XLA
-  einsum triblock path (same weights), forward and gradients."""
-  n = statics.num_mesh_nodes
-  x = jax.random.normal(jax.random.PRNGKey(6), (n, 2, 32))
-  cond = jax.random.normal(jax.random.PRNGKey(7), (2, 16))
-
-  tri = tr.MeshTransformer(_cfg('triblock'), statics.attention_mask,
-                           rngs=nnx.Rngs(0))
-  fused = tr.MeshTransformer(_cfg('triblock_pallas'),
-                             statics.attention_mask, rngs=nnx.Rngs(0))
-  out_t = tri(x, cond)
-  out_f = fused(x, cond)
-  np.testing.assert_allclose(np.asarray(out_f), np.asarray(out_t),
-                             atol=3e-5, rtol=3e-5)
-
-  def loss(m):
-    return (m(x, cond) ** 2).mean()
-
-  gt = jax.tree.leaves(nnx.state(nnx.grad(loss)(tri), nnx.Param))
-  gf = jax.tree.leaves(nnx.state(nnx.grad(loss)(fused), nnx.Param))
-  assert len(gt) == len(gf)
-  for a, b in zip(gt, gf):
-    np.testing.assert_allclose(np.asarray(a), np.asarray(b),
-                               atol=5e-5, rtol=5e-4)

@@ -16,7 +16,7 @@ this framework's derived names mapped back to CDS naming
 converter at read time).
 
 Requires the `cdsapi` package and ~/.cdsapirc credentials — neither is
-available in air-gapped TPU environments, so the import is gated and
+available in air-gapped environments, so the import is gated and
 `--dry_run` prints the CDS requests without contacting the network
 (that path is unit-tested; the network path cannot be).
 

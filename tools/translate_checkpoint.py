@@ -53,7 +53,7 @@ def main():
   p.add_argument('--out', required=True)
   args = p.parse_args()
 
-  import flax.nnx as nnx
+  from gencast_tpu.nn import nnx
   import orbax.checkpoint as ocp
 
   from gencast_tpu import configs
